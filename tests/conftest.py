@@ -14,3 +14,9 @@ _install_hypothesis()
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0xFB)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the port's CUDA kernels); "
+        "skipped where torch.cuda.is_available() is false")
