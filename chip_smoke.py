@@ -1,31 +1,52 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's batched point lookup — ``core.batch_ops.lookup_batch``
-with ``TraversalEngine("fused")``, which launches the fused whole-descent
-CUDA kernel once per batch — on an index of the size its users run:
+Drives the port's two main paths on indexes of the size their users run:
+the batched point lookup (``core.batch_ops.lookup_batch`` with
+``TraversalEngine("fused")``, one launch of the fused-descent kernel K1 per
+batch) and YCSB workload E (``insert_batch`` then ``range_scan`` with the
+``"fused"`` engine; the scan is one launch of the fused-scan kernel K2):
 
 1. the card's name and power limit;
-2. build of every CUDA kernel from ``src/repro_torch/csrc`` (``nvcc``,
-   sm_90a) into ``build/kernels/``;
-3. YCSB-like keys (``user`` + 19 digits, width 24), 10,000,000 of them,
-   planned as ``benchmarks/common.py::build_tree`` plans (``max_keys =
-   2.5 n``: ns=64, fs=4, 6 levels): every key is looked up once in batches
-   of 65,536, 10% of each batch with its last byte flipped; every present
-   key must be found with its value, and the kernel must equal the plain
+2. build of every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
+   per source, sm_90a, all at once) into ``build/kernels/``;
+3. ``ycsb``: YCSB-like keys (``user`` + 19 digits, width 24), 10,000,000 of
+   them, planned as ``benchmarks/common.py::build_tree`` plans (``max_keys
+   = 2.5 n``: ns=64, fs=4, 6 levels): every key is looked up once in
+   batches of 65,536, 10% of each batch with its last byte flipped; every
+   present key must be found with its value, and K1 must equal the plain
    torch version on the card bit for bit (leaf, path, found, slot, val and
    all six counters; stats on and off, sibling check on and off);
-4. URL keys (width 72, heavy shared prefixes), 1,000,000, the same checks,
-   plus a tree whose parents are stale (blink sibling hops);
-5. ns=128 with 1,000,000 integer keys (width 8), the same checks, plus
-   stale parents that need two sibling hops;
-6. timing of the main phase's batch with CUDA events: the kernel, the plain
-   torch version, end-to-end ``lookup_batch``, and the kernel's bound.
+4. ``url``: URL keys (width 72, heavy shared prefixes), 1,000,000, the same
+   checks, plus a tree whose parents are stale (blink sibling hops);
+5. ``int-ns128``: ns=128 with 1,000,000 integer keys (width 8), the same
+   checks, plus stale parents that need two sibling hops;
+6. ``ycsb-e`` on the ycsb tree: one scan batch on the clean tree, then 16
+   rounds of ``insert_batch`` (3,449 fresh keys, 5% of the round's
+   operations) and ``range_scan`` (65,536 starts drawn zipf(0.99) over the
+   keys present, a third of them between keys; ``max_items`` 50, as
+   ``benchmarks/ycsb.py`` runs workload E). Every inserted key and a sample
+   of the original ones must be found; K2 must equal the plain version bit
+   for bit on the clean and the dirtied tree (stats on and off, and the
+   always-sort plain version), and 1,024 scans of each checked batch must
+   equal a numpy oracle of the live keys read back from the tree;
+7. ``int-ns128-append``: 20,480 keys appended above the maximum of the int
+   tree in batches of 4,096 (leaf splits and inner inserts), then found,
+   and K2 held against the plain version inside the appended range;
+8. ``url-card-vs-cpu``: inserts (fit and split paths), an update and a
+   remove on the url tree on the card and on a CPU copy; every tree array
+   must be bit-equal afterwards (no scatter depends on which writer CUDA
+   picks);
+9. timing with CUDA events: K1 on the main lookup batch; K2 on the last
+   scan batch of the dirtied and of the clean tree; the plain versions;
+   ``lookup_batch``, ``range_scan`` and ``insert_batch`` end to end (host
+   clock); each kernel's bound.
 
 Each phase prints one JSON line. The line before the last holds the
 kernels table; the last line is ``{"ok": true, "device": ...}``. The script
-exits non-zero, with no result, when there is no CUDA device or when the
-port's sources are not beside it. Run: ``python3 chip_smoke.py``.
+exits non-zero, with no result, when there is no CUDA device, when the
+port's sources are not beside it, or when any check fails. Run:
+``python3 chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -57,19 +78,40 @@ def emit(obj) -> None:
 # Vectorised generators with the distributions of
 # benchmarks/common.py::make_dataset ("ycsb", "url", "rand-int").
 
-def ycsb_keys(n: int, seed: int):
-    """``user`` + a zero-padded 19-digit number below 10**18, width 24."""
+def ycsb_nums(n: int, seed: int) -> np.ndarray:
+    """``n`` distinct sorted numbers below 10**18 (the YCSB key ids)."""
     rng = np.random.default_rng(seed)
     nums = np.zeros(0, np.int64)
     while nums.size < n:
         nums = np.unique(np.concatenate(
             [nums, rng.integers(0, 10**18, size=n - nums.size + 1024)]))
-    nums = nums[:n]
+    return nums[:n]
+
+
+def ycsb_encode(nums: np.ndarray):
+    """``user`` + the zero-padded 19-digit number, width 24, length 23."""
+    n = nums.shape[0]
     kb = np.zeros((n, 24), np.uint8)
     kb[:, :4] = np.frombuffer(b"user", np.uint8)
     for i in range(19):
         kb[:, 4 + i] = (nums // 10**(18 - i)) % 10 + ord("0")
     return kb, np.full(n, 23, np.int32)
+
+
+def ycsb_keys(n: int, seed: int):
+    """``user`` + a zero-padded 19-digit number below 10**18, width 24."""
+    return ycsb_encode(ycsb_nums(n, seed))
+
+
+def zipf_indices(rng, n_keys: int, n_ops: int, theta: float = 0.99):
+    """Zipfian (skew ``theta``) request indices over ``n_keys``, the YCSB
+    request distribution of ``benchmarks/common.py::zipf_indices``: inverse
+    CDF over ranks, ranks decorrelated from key order by a permutation."""
+    w = np.arange(1, n_keys + 1, dtype=np.float64) ** (-theta)
+    cdf = np.cumsum(w)
+    cdf /= cdf[-1]
+    idx = np.searchsorted(cdf, rng.random(n_ops))
+    return rng.permutation(n_keys)[np.clip(idx, 0, n_keys - 1)]
 
 
 def url_keys(n: int, seed: int):
@@ -302,6 +344,345 @@ def run_phase(name, kb, kl, *, ns, batch, seed, device, stale=None):
     return tree, first, out
 
 
+# ------------------------------------------------------------------- trees
+
+def tree_to(tree, device):
+    """A copy of ``tree`` with every array on ``device``."""
+    from repro_torch.core.fbtree import FBTree, Level
+    a = tree.arrays
+    mv = lambda t: t.to(device, copy=True)
+    flat = {f: mv(getattr(a, f)) for f in a._fields
+            if f not in ("levels", "stacked")}
+    return FBTree(tree.config, a._replace(
+        levels=tuple(Level(*map(mv, lv)) for lv in a.levels),
+        stacked=Level(*map(mv, a.stacked)), **flat))
+
+
+def tree_fields(tree):
+    """Every array of the tree by name, levels and stacked copy included."""
+    a = tree.arrays
+    for f in a._fields:
+        v = getattr(a, f)
+        if f == "levels":
+            for i, lv in enumerate(v):
+                for g in lv._fields:
+                    yield f"levels[{i}].{g}", getattr(lv, g)
+        elif f == "stacked":
+            for g in v._fields:
+                yield f"stacked.{g}", getattr(v, g)
+        else:
+            yield f, v
+
+
+def tree_diffs(ta, tb):
+    """Names of the arrays that differ in dtype, shape or any value."""
+    out = []
+    for (name, x), (_, y) in zip(tree_fields(ta), tree_fields(tb)):
+        x, y = x.cpu(), y.cpu()
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+            out.append(name)
+    return out
+
+
+# ------------------------------------------------------------------- scans
+
+SCAN_OUT = ("out_kid", "out_val", "emitted", "rearranged")
+
+
+def scan_kernel_vs_plain(tree, qb, ql, max_items: int) -> int:
+    """Hold K2 against the plain torch version on the same inputs, stats on
+    and off, and against the always-sort plain version. Exact: returns the
+    largest absolute difference, which must be 0."""
+    from repro_torch.kernels.fused_scan import ops, ref
+    worst = 0
+    for stats in (True, False):
+        k = ops.fused_range_scan(tree, qb, ql, max_items=max_items,
+                                 collect_stats=stats)
+        for force in (False, True):
+            p = ref.fused_range_scan_ref(tree, qb, ql, max_items=max_items,
+                                         collect_stats=stats, force_sort=force)
+            for name, a, b in zip(SCAN_OUT, k, p):
+                if a.shape != b.shape or a.dtype != b.dtype:
+                    raise AssertionError(
+                        f"{name}: kernel {a.dtype}{tuple(a.shape)} vs plain "
+                        f"{b.dtype}{tuple(b.shape)}")
+                diff = int((a.long() - b.long()).abs().max()) if a.numel() else 0
+                worst = max(worst, diff)
+                if diff:
+                    raise AssertionError(
+                        f"K2 != plain on {name} (stats={stats}, "
+                        f"force_sort={force}): max |diff| {diff}")
+    return worst
+
+
+def scan_oracle_check(tree, qb, ql, out, max_items: int, n_check: int,
+                      seed: int) -> int:
+    """Hold ``n_check`` scans of a batch against a numpy oracle: the live
+    keys read back from the tree's arrays, sorted by bytes then length; a
+    scan must return the first ``max_items`` keys >= its start. Returns the
+    number of scans checked."""
+    from repro_torch.core.keys import pack_words
+    a = tree.arrays
+    kid_t = a.leaf_keyid[a.leaf_occ]
+    kid = kid_t.cpu().numpy()
+    val = a.leaf_val[a.leaf_occ].cpu().numpy()
+    kb = a.key_bytes[kid_t.long()].cpu().numpy()
+    kl = a.key_lens[kid_t.long()].cpu().numpy()
+    pick = np.random.default_rng(seed).choice(qb.shape[0], n_check,
+                                              replace=False)
+    qbn, qln = qb.cpu().numpy()[pick], ql.cpu().numpy()[pick]
+    n = kid.shape[0]
+    # one lexsort of keys and starts together; a start sorts before a key
+    # equal to it (flag 0 < 1), so the keys before it are the keys < start
+    words = pack_words(np.concatenate([kb, qbn]))
+    lens = np.concatenate([kl, qln])
+    flag = np.concatenate([np.ones(n, np.int8), np.zeros(n_check, np.int8)])
+    order = np.lexsort([flag, lens] + [words[:, i] for i in
+                                       range(words.shape[1] - 1, -1, -1)])
+    is_key = flag[order] == 1
+    before = np.cumsum(is_key) - is_key
+    pos = np.empty(n_check, np.int64)
+    pos[order[~is_key] - n] = before[~is_key]
+    s_kid, s_val = kid[order[is_key]], val[order[is_key]]
+    at = pos[:, None] + np.arange(max_items)[None, :]
+    ok = at < n
+    want_kid = np.where(ok, s_kid[np.minimum(at, n - 1)], -1)
+    want_val = np.where(ok, s_val[np.minimum(at, n - 1)], 0)
+    got = [o.cpu().numpy()[pick] for o in out[:3]]
+    for name, g, w in (("out_kid", got[0], want_kid),
+                       ("out_val", got[1], want_val),
+                       ("emitted", got[2], ok.sum(1))):
+        bad = np.nonzero((g != w).reshape(n_check, -1).any(1))[0]
+        if bad.size:
+            raise AssertionError(f"scan != oracle on {name} for "
+                                 f"{bad.size} of {n_check} starts")
+    return n_check
+
+
+# ------------------------------------------------------------------ ycsb-e
+
+def run_ycsb_e(tree, kb, kl, *, seed, device, rounds=16, n_ins=3449,
+               batch=65_536, max_items=50, n_check=1024):
+    """YCSB workload E on the main tree: a scan batch on the clean tree,
+    then ``rounds`` x (insert ``n_ins`` fresh keys, scan ``batch`` zipf
+    starts), all through the ``"fused"`` engine; then the checks."""
+    from repro_torch.core import batch_ops
+    from repro_torch.core.traverse import TraversalEngine
+    from repro_torch.kernels.fused_descent import ops as k1
+    from repro_torch.kernels.fused_scan import ops as k2
+
+    n = kb.shape[0]
+    rng = np.random.default_rng(seed + 2)
+    need = rounds * n_ins
+    nums = np.zeros(n, np.int64)
+    for i in range(19):
+        nums = nums * 10 + (kb[:, 4 + i] - ord("0"))
+    cand = np.unique(rng.integers(0, 10**18, size=2 * need))
+    cand = cand[~np.isin(cand, nums)]
+    fresh = rng.permutation(cand)[:need]
+    ins_kb, ins_kl = ycsb_encode(fresh)
+    ins_val = (n + np.arange(need)).astype(np.int32)
+    kb_d = torch.from_numpy(np.concatenate([kb, ins_kb])).to(device)
+    kl_d = torch.from_numpy(np.concatenate([kl, ins_kl])).to(device)
+    val_d = torch.from_numpy(ins_val).to(device)
+    eng = TraversalEngine("fused")
+    sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+            else (lambda: None))
+
+    def scan(t, n_present):
+        idx = torch.from_numpy(zipf_indices(rng, n_present, batch)).to(device)
+        flip = torch.from_numpy(rng.random(batch) < 1 / 3).to(device)
+        qb = kb_d[idx].clone()
+        qb[:, -1] ^= torch.where(flip, 0xA5, 0).to(torch.uint8)
+        ql = kl_d[idx]
+        return qb, ql, batch_ops.range_scan(t, qb, ql, max_items=max_items,
+                                            engine=eng)
+
+    clean = tree
+    k1.LAUNCHES = k2.LAUNCHES = 0          # counts from this path only
+    first = scan(tree, n)
+    ins_ms, ins_k1, splits, ins_rounds = [], [], 0, 0
+    for r in range(rounds):
+        sl = slice(r * n_ins, (r + 1) * n_ins)
+        sync()
+        t0, l0 = time.perf_counter(), k1.LAUNCHES
+        tree, rep, nr = batch_ops.insert_batch(
+            tree, kb_d[n:][sl], kl_d[n:][sl], val_d[sl], engine=eng)
+        sync()
+        ins_ms.append((time.perf_counter() - t0) * 1e3)
+        ins_k1.append(k1.LAUNCHES - l0)
+        if bool(rep.found.any()):
+            raise AssertionError("ycsb-e: a fresh key was already present")
+        splits += int(rep.splits)
+        ins_rounds += nr
+        last = scan(tree, n + (r + 1) * n_ins)
+    scan_launches, k1_launches = k2.LAUNCHES, k1.LAUNCHES
+    if torch.device(device).type == "cuda" and scan_launches != rounds + 1:
+        raise AssertionError(f"ycsb-e: {scan_launches} K2 launches for "
+                             f"{rounds + 1} range_scan calls")
+
+    vals, rep = batch_ops.lookup_batch(tree, kb_d[n:], kl_d[n:], engine=eng)
+    ins_found = int((rep.found & (vals == val_d)).sum())
+    sample = torch.from_numpy(rng.choice(n, batch, replace=False)).to(device)
+    vals, rep = batch_ops.lookup_batch(tree, kb_d[sample], kl_d[sample],
+                                       engine=eng)
+    orig_found = int((rep.found & (vals == sample.to(torch.int32))).sum())
+    if ins_found != need or orig_found != batch:
+        raise AssertionError(f"ycsb-e: found {ins_found} of {need} inserted "
+                             f"and {orig_found} of {batch} original keys")
+    err = max(scan_kernel_vs_plain(clean, *first[:2], max_items),
+              scan_kernel_vs_plain(tree, *last[:2], max_items))
+    checked = (scan_oracle_check(clean, *first, max_items, n_check, seed)
+               + scan_oracle_check(tree, *last, max_items, n_check, seed))
+    rearr_clean, rearr_last = int(first[2][3].sum()), int(last[2][3].sum())
+    if rearr_clean != 0 or rearr_last <= 0:
+        raise AssertionError(f"ycsb-e: rearranged {rearr_clean} on the clean "
+                             f"batch, {rearr_last} after the inserts")
+    a = tree.arrays
+    nl = int(a.leaf_count)
+    out = {"phase": "ycsb-e", "keys": n, "rounds": rounds,
+           "inserts_per_round": n_ins, "scan_batch": batch,
+           "max_items": max_items, "range_scan_calls": rounds + 1,
+           "k2_launches": scan_launches, "k1_launches_in_inserts": k1_launches,
+           "insert_rounds": ins_rounds, "splits": splits,
+           "leaves": nl,
+           "dirty_leaf_share": float((~a.leaf_ordered[:nl]).float().mean()),
+           "inserted_found": ins_found, "original_sample_found": orig_found,
+           "emitted_per_scan_last": float(last[2][2].float().mean()),
+           "rearranged_clean": rearr_clean, "rearranged_last": rearr_last,
+           "oracle_scans_checked": checked,
+           "kernel_vs_plain_max_abs_err": err,
+           "insert_batch_ms_median": statistics.median(ins_ms),
+           "insert_batch_k1_launches": ins_k1,
+           "tree_bytes": tree_bytes(tree)}
+    emit(out)
+    return clean, tree, first, last, out
+
+
+def run_append(tree, kb, *, seed, device, n_app=20_480, batch=4096,
+               max_items=50):
+    """Append ``n_app`` keys above the tree's maximum in batches (monotone
+    appends split the rightmost leaf every round and insert into its
+    parents), find them, and hold K2 against the plain version on scans
+    that start inside the appended range."""
+    from repro_torch.core import batch_ops
+    from repro_torch.core.keys import decode_uint64, encode_uint64
+    from repro_torch.core.traverse import TraversalEngine
+
+    rng = np.random.default_rng(seed + 3)
+    top = decode_uint64(kb).max()
+    new = top + np.uint64(1) + np.arange(n_app, dtype=np.uint64) * np.uint64(3)
+    app_kb = torch.from_numpy(encode_uint64(new)).to(device)
+    app_kl = torch.full((n_app,), 8, dtype=torch.int32, device=device)
+    app_val = torch.arange(n_app, dtype=torch.int32, device=device) + 2**29
+    eng = TraversalEngine("fused")
+    counts0 = [int(lv.count) for lv in tree.arrays.levels]
+    splits = rounds = 0
+    for lo in range(0, n_app, batch):
+        tree, rep, nr = batch_ops.insert_batch(
+            tree, app_kb[lo:lo + batch], app_kl[lo:lo + batch],
+            app_val[lo:lo + batch], engine=eng)
+        splits += int(rep.splits)
+        rounds += nr
+    vals, rep = batch_ops.lookup_batch(tree, app_kb, app_kl, engine=eng)
+    found = int((rep.found & (vals == app_val)).sum())
+    if splits <= 0 or found != n_app:
+        raise AssertionError(f"append: {splits} splits, {found} of {n_app} "
+                             f"appended keys found")
+    idx = torch.from_numpy(rng.choice(n_app, batch, replace=False)).to(device)
+    qb, ql = app_kb[idx].clone(), app_kl[idx]
+    qb[::3, -1] ^= 0xA5
+    err = scan_kernel_vs_plain(tree, qb, ql, max_items)
+    out = {"phase": "int-ns128-append", "appended": n_app, "batch": batch,
+           "insert_rounds": rounds, "splits": splits, "appended_found": found,
+           "level_counts_before": counts0,
+           "level_counts_after": [int(lv.count) for lv in tree.arrays.levels],
+           "scan_starts_checked": batch, "kernel_vs_plain_max_abs_err": err}
+    emit(out)
+    return out
+
+
+def run_card_vs_cpu(tree, kb, kl, *, seed, device, n_batches=8, batch=4096):
+    """The same inserts, update and remove on the tree on ``device`` and on
+    a CPU copy; afterwards every tree array must be bit-equal. Half of each
+    insert batch is fresh URL keys spread over the tree (fit path), half is
+    existing keys with ``~`` appended, taken from one run of neighbouring
+    keys, so they pile into a few leaves and split them."""
+    from repro_torch.core import batch_ops
+    from repro_torch.core.traverse import TraversalEngine
+
+    rng = np.random.default_rng(seed + 4)
+    n, L = kb.shape
+    half = batch // 2
+    existing = kb.view(f"S{L}").ravel()
+    fresh_kb, _ = url_keys(2 * n_batches * half, seed + 5)
+    fresh = fresh_kb.view(f"S{L}").ravel()
+    fresh = rng.permutation(fresh[~np.isin(fresh, existing)])[
+        :n_batches * half]
+    short = np.nonzero(kl < L)[0]
+    starts = rng.choice(short.size // half, n_batches, replace=False) * half
+    derived = []
+    for s in starts:
+        rows = kb[short[s:s + half]].copy()
+        rows[np.arange(half), kl[short[s:s + half]]] = ord("~")
+        derived.append(rows.view(f"S{L}").ravel())
+    ins = np.concatenate([np.stack([fresh[i * half:(i + 1) * half], d])
+                          .ravel() for i, d in enumerate(derived)])
+    ins = ins.view(np.uint8).reshape(-1, L)
+    ins_kl = (ins != 0).sum(1).astype(np.int32)
+    ins_val = (2**29 + np.arange(ins.shape[0])).astype(np.int32)
+    upd_idx = rng.choice(n, batch, replace=False)
+    upd_mask = rng.random(batch) < 0.8
+    rm_kb = np.concatenate([kb[rng.choice(n, half, replace=False)],
+                            ins[rng.choice(ins.shape[0], half, replace=False)]])
+    rm_kl = (rm_kb != 0).sum(1).astype(np.int32)
+
+    def drive(t, dev):
+        eng = TraversalEngine("fused")
+        reps, splits, rounds = [], 0, 0
+        t0 = time.perf_counter()
+        for i in range(n_batches):
+            sl = slice(i * batch, (i + 1) * batch)
+            t, rep, nr = batch_ops.insert_batch(t, ins[sl], ins_kl[sl],
+                                                ins_val[sl], engine=eng)
+            reps.append(rep)
+            splits += int(rep.splits)
+            rounds += nr
+        t, rep = batch_ops.update_batch(
+            t, kb[upd_idx], kl[upd_idx], np.arange(batch, dtype=np.int32),
+            engine=eng, mask=upd_mask)
+        reps.append(rep)
+        t, rep = batch_ops.remove_batch(t, rm_kb, rm_kl, engine=eng)
+        reps.append(rep)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        return t, reps, splits, rounds, time.perf_counter() - t0
+
+    card, card_reps, splits, rounds, card_s = drive(tree, device)
+    host, host_reps, h_splits, h_rounds, host_s = drive(tree_to(tree, "cpu"),
+                                                        "cpu")
+    diffs = tree_diffs(card, host)
+    rep_diffs = [f"op{i}.{f}" for i, (x, y) in enumerate(zip(card_reps,
+                                                             host_reps))
+                 for f in x._fields
+                 if not torch.equal(getattr(x, f).cpu(), getattr(y, f))]
+    n_fields = sum(1 for _ in tree_fields(card))
+    if diffs or rep_diffs or (splits, rounds) != (h_splits, h_rounds):
+        raise AssertionError(f"card != cpu: arrays {diffs}, reports "
+                             f"{rep_diffs}, splits/rounds {(splits, rounds)} "
+                             f"vs {(h_splits, h_rounds)}")
+    if splits <= 0:
+        raise AssertionError("url-card-vs-cpu: the inserts split no leaf")
+    out = {"phase": "url-card-vs-cpu", "keys": n, "insert_batches": n_batches,
+           "batch": batch, "inserted": int(ins.shape[0]),
+           "insert_rounds": rounds, "splits": splits,
+           "updated_lanes": int(upd_mask.sum()), "removed_lanes": batch,
+           "fields_compared": n_fields, "fields_equal": n_fields - len(diffs),
+           "card_s": card_s, "cpu_s": host_s}
+    emit(out)
+    return out
+
+
 # ------------------------------------------------------------------ timing
 
 def _event_ms(fn, runs: int):
@@ -387,6 +768,112 @@ def timing(tree, qb, ql, runs: int):
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
 
 
+def scan_bound(tree, qb, ql, max_items: int):
+    """Least time the card could take for one fused range scan of this
+    batch: the larger of bytes / HBM rate and byte compares / integer rate.
+    Bytes: the queries read once; the descent rows as in :func:`bound`; for
+    each distinct leaf the scans visit (the walk replayed on this batch),
+    its key-id, value and occupancy rows, next link and ordered flag, plus
+    the high key of each start leaf; the key rows (and lengths) of hop 0's
+    occupied slots and of the dirty leaves visited; and the outputs written
+    once. Compares: the descent's, one L-byte compare per occupied slot of
+    a start leaf, and k*ceil(log2 k) for each visit of a dirty leaf with k
+    keys (a sort's least). Anchors read by the binary searches are left
+    out, so this undercounts."""
+    from repro_torch.core.keys import compare_padded
+    from repro_torch.kernels.fused_descent import ops
+    a = tree.arrays
+    s = a.stacked
+    NL, C, fs, ns = s.features.shape
+    B, L = qb.shape
+    leaf, path, bst = ops.fused_traverse(tree, qb, ql, collect_stats=True)
+    nbytes = B * (L + 4)
+    for l, ids in enumerate(path):
+        u = torch.unique(ids.long())
+        kn = s.knum[l, u]
+        nbytes += int(u.numel()) * 8 + int((kn > 1).sum()) * (4 + L + fs * ns)
+    cur = leaf.long()
+    occ = a.leaf_occ[cur]
+    kid = a.leaf_keyid[cur]
+    kb = a.key_bytes[torch.clamp(kid, min=0).long()]
+    kl = torch.where(occ, a.key_lens[torch.clamp(kid, min=0).long()], 0)
+    emit = occ & (compare_padded(kb, kl, qb[:, None, :], ql[:, None]) >= 0)
+    del kb, kl
+    emitted = torch.clamp(emit.sum(-1), max=max_items)
+    visited, key_rows = [cur], [kid[occ]]
+    n_cmp = L * int(occ.sum())
+    k = occ.sum(-1)
+    dirty = ~a.leaf_ordered[cur]
+    sort_cmp = lambda k: int((k * torch.ceil(torch.log2(torch.clamp(
+        k.double(), min=1)))).sum())
+    n_cmp += L * sort_cmp(k[dirty])
+    nxt = a.leaf_next[cur]
+    cur = torch.where((nxt >= 0) & (emitted < max_items), nxt, -1).long()
+    while bool((cur >= 0).any()):
+        act = cur >= 0
+        c = cur[act]
+        visited.append(c)
+        occ = a.leaf_occ[c]
+        dirty = ~a.leaf_ordered[c]
+        key_rows.append(a.leaf_keyid[c][dirty][occ[dirty]])
+        n_cmp += L * sort_cmp(occ[dirty].sum(-1))
+        emitted[act] = torch.clamp(emitted[act] + occ.sum(-1), max=max_items)
+        nxt = a.leaf_next[c]
+        cur[act] = torch.where((nxt >= 0) & (emitted[act] < max_items), nxt,
+                               -1).long()
+    n_leaves = int(torch.unique(torch.cat(visited)).numel())
+    n_keys = int(torch.unique(torch.cat(key_rows).long()).numel())
+    nbytes += n_leaves * (9 * ns + 4 + 1) + int(torch.unique(leaf).numel()) * 4
+    nbytes += n_keys * (L + 4)
+    nbytes += B * max_items * 8 + B * 4
+    ops_n = 2 * ns * int(bst.feat_rounds.sum()) + L * int(
+        bst.key_compares.sum()) + n_cmp
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_n / INT_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def scan_timing(clean, tree, qb, ql, max_items: int, runs: int):
+    """K2 on the dirtied and on the clean tree, the plain version, and
+    range_scan end to end, on one scan batch, stats off."""
+    from repro_torch.core import batch_ops
+    from repro_torch.core.traverse import TraversalEngine
+    from repro_torch.kernels.fused_scan import ops, ref
+    kern = lambda t: ops.fused_range_scan(t, qb, ql, max_items=max_items,
+                                          collect_stats=False)
+    plain = lambda: ref.fused_range_scan_ref(tree, qb, ql, max_items=max_items,
+                                             collect_stats=False)
+    eng = TraversalEngine("fused", collect_stats=False)
+    for _ in range(3):
+        kern(tree), kern(clean), plain()
+    k_ms, k_all = _event_ms(lambda: kern(tree), runs)
+    kc_ms, _ = _event_ms(lambda: kern(clean), runs)
+    p_ms, _ = _event_ms(plain, runs)
+    e2e = []
+    for _ in range(runs + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch_ops.range_scan(tree, qb, ql, max_items=max_items, engine=eng)
+        torch.cuda.synchronize()
+        e2e.append((time.perf_counter() - t0) * 1e3)
+    b_ms, b_by, b_bytes = scan_bound(tree, qb, ql, max_items)
+    bc_ms, _, _ = scan_bound(clean, qb, ql, max_items)
+    B = qb.shape[0]
+    emit({"metric": "scan_kernel_ms", "value": k_ms, "tree": "dirtied",
+          "runs": runs, "batch": B, "max_items": max_items,
+          "min": min(k_all), "max": max(k_all)})
+    emit({"metric": "scan_kernel_ms", "value": kc_ms, "tree": "clean",
+          "runs": runs, "batch": B})
+    emit({"metric": "scan_plain_ms", "value": p_ms, "runs": runs})
+    emit({"metric": "range_scan_ms", "value": statistics.median(e2e[3:]),
+          "runs": runs, "clock": "host, synchronized"})
+    emit({"metric": "scan_bound_ms", "value": b_ms, "bound_by": b_by,
+          "bound_bytes": b_bytes, "clean_tree_bound_ms": bc_ms})
+    emit({"metric": "scan_bound_share", "value": b_ms / k_ms})
+    return dict(ms=k_ms, clean_ms=kc_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
 # -------------------------------------------------------------------- main
 
 def _smi() -> str:
@@ -404,13 +891,19 @@ def main(argv=None) -> int:
     p.add_argument("--int-keys", type=int, default=1_000_000)
     p.add_argument("--batch", type=int, default=65_536)
     p.add_argument("--runs", type=int, default=25)
+    p.add_argument("--e-rounds", type=int, default=16)
     args = p.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.kernels.fused_descent import cuda, ops
+    try:
+        from repro_torch.kernels import nvcc
+    except ImportError as e:
+        print(f"chip_smoke: the port's sources are not beside the script "
+              f"({e})", file=sys.stderr)
+        return 2
 
     smi = _smi()
     kind = torch.cuda.get_device_name(0)
@@ -420,35 +913,52 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    lib = cuda.build()
+    libs = nvcc.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": os.path.relpath(str(lib), ROOT)})
-    if cuda.BUILD_LOG:
-        print(cuda.BUILD_LOG.strip(), flush=True)
+          "libraries": [os.path.relpath(str(p), ROOT) for p in libs.values()]})
+    for name, log in sorted(nvcc.BUILD_LOG.items()):
+        print(f"nvcc {name}:\n{log.strip()}", flush=True)
 
     dev = "cuda"
     kb, kl = ycsb_keys(args.ycsb_keys, args.seed)
     tree, (qb, ql), main_out = run_phase("ycsb", kb, kl, ns=64,
                                          batch=args.batch, seed=args.seed,
                                          device=dev)
-    launches = main_out["launches"]
+    clean, dirty, _, (sqb, sql, _), e_out = run_ycsb_e(
+        tree, kb, kl, seed=args.seed, device=dev, rounds=args.e_rounds,
+        batch=args.batch)
     del kb, kl
-    kb, kl = url_keys(args.url_keys, args.seed)
-    run_phase("url", kb, kl, ns=64, batch=args.batch, seed=args.seed,
-              device=dev, stale="single")
-    kb, kl = int_keys(args.int_keys, args.seed)
-    run_phase("int-ns128", kb, kl, ns=128, batch=args.batch, seed=args.seed,
-              device=dev, stale="double")
+    ukb, ukl = url_keys(args.url_keys, args.seed)
+    url_tree, _, _ = run_phase("url", ukb, ukl, ns=64, batch=args.batch,
+                               seed=args.seed, device=dev, stale="single")
+    run_card_vs_cpu(url_tree, ukb, ukl, seed=args.seed, device=dev)
+    del url_tree, ukb, ukl
+    ikb, ikl = int_keys(args.int_keys, args.seed)
+    int_tree, _, _ = run_phase("int-ns128", ikb, ikl, ns=128,
+                               batch=args.batch, seed=args.seed, device=dev,
+                               stale="double")
+    a_out = run_append(int_tree, ikb, seed=args.seed, device=dev)
+    del int_tree
 
     t = timing(tree, qb, ql, args.runs)
+    st = scan_timing(clean, dirty, sqb, sql, 50, args.runs)
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "fused_descent", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_descent.cu",
         "replaces": "src/repro/kernels/fused_descent/kernel.py:299",
-        "launches": launches, "max_abs_err": main_out["kernel_vs_plain_max_abs_err"],
+        "launches": main_out["launches"],
+        "max_abs_err": main_out["kernel_vs_plain_max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None}]})
+        "bound_by": t["bound_by"], "library_ms": None}, {
+        "name": "fused_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/fused_scan.cu",
+        "replaces": "src/repro/kernels/fused_scan/kernel.py:237",
+        "launches": e_out["k2_launches"],
+        "max_abs_err": max(e_out["kernel_vs_plain_max_abs_err"],
+                           a_out["kernel_vs_plain_max_abs_err"]),
+        "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+        "bound_by": st["bound_by"], "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

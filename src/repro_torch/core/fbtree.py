@@ -27,7 +27,7 @@ from . import keys as K
 
 __all__ = ["TreeConfig", "Level", "TreeArrays", "FBTree", "EMPTY", "BIG",
            "bulk_build", "stack_levels", "chunk_start", "chunk_of_pos",
-           "resolve_target"]
+           "recompute_inner_meta", "resolve_target"]
 
 EMPTY = -1
 BIG = 2**30
@@ -228,6 +228,45 @@ def chunk_start(c, base, rem):
     c, base, rem = (torch.as_tensor(x) for x in (c, base, rem))
     return torch.where(c <= rem, c * (base + 1),
                        rem * (base + 1) + (c - rem) * base).to(torch.int32)
+
+
+def recompute_inner_meta(kb_store: torch.Tensor, kl_store: torch.Tensor,
+                         anchors: torch.Tensor, knum: torch.Tensor, fs: int,
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Segmented reduction deriving ``plen``/``prefix``/``features`` for a
+    block of inner nodes from their anchor key ids (the torch twin of the
+    reference's ``recompute_inner_meta``). ``anchors`` is ``[R, ns]`` with
+    ``EMPTY`` pads; invalid lanes contribute the identity.
+
+    The common-prefix length is the first byte column where some valid
+    anchor differs from anchor 0 (``torch.argmin`` returns the first
+    minimum, as ``jnp.argmin`` does), clipped by the shortest anchor length
+    and the key width; feature row ``f`` is byte ``plen + f`` of every
+    anchor (0 past the key width). The insert split path runs it, so
+    split-produced nodes agree with built ones byte for byte. Returns
+    ``(plen int32 [R], prefix uint8 [R, L], features uint8 [R, fs, ns])``.
+    """
+    R, ns = anchors.shape
+    L = kb_store.shape[-1]
+    aid = torch.clamp(anchors, min=0).long()
+    akb = kb_store[aid]                       # [R, ns, L]
+    akl = kl_store[aid]
+    lane = torch.arange(ns, dtype=torch.int32, device=anchors.device)[None, :]
+    valid = lane < knum[:, None]
+    same = (akb == akb[:, :1, :]) | ~valid[:, :, None]
+    allsame = same.all(dim=1)                 # [R, L]
+    plen = torch.where(allsame.all(-1), L,
+                       torch.argmin(allsame.to(torch.int32), dim=-1))
+    minlen = torch.where(valid, akl, BIG).amin(-1)
+    plen = torch.minimum(plen, torch.clamp(minlen, max=L)).to(torch.int32)
+    prefix = akb[:, 0, :]
+    feats = []
+    for f in range(fs):
+        pos = torch.clamp(plen + f, 0, L - 1).long()
+        byte = torch.gather(akb, 2, pos[:, None, None].expand(R, ns, 1))[..., 0]
+        byte = torch.where(((plen + f)[:, None] < L) & valid, byte, 0)
+        feats.append(byte.to(torch.uint8))
+    return plen, prefix, torch.stack(feats, dim=1)
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Leaf-node operations: hashtag probe (paper Fig. 6 lines 30-42) — the
-port's counterpart of ``repro.core.leaf`` (lookup half)."""
+"""Leaf-node operations: hashtag probe (paper Fig. 6 lines 30-42) and
+free-slot ranking — the port's counterpart of ``repro.core.leaf``."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
@@ -9,7 +9,7 @@ import torch
 from .fbtree import FBTree
 from .keys import fnv1a_tags
 
-__all__ = ["LeafStats", "probe", "verify_candidates"]
+__all__ = ["LeafStats", "probe", "verify_candidates", "find_free_slots"]
 
 
 class LeafStats(NamedTuple):
@@ -90,3 +90,15 @@ def probe(tree: FBTree, leaf_ids: torch.Tensor, qb: torch.Tensor,
                        ).to(torch.int32),
     )
     return found, slot, val, stats
+
+
+def find_free_slots(occ_row: torch.Tensor, count) -> torch.Tensor:
+    """Rank free slots of a leaf row: returns int32 [ns] where entry r is the
+    slot index of the r-th free slot (ns if fewer free slots exist)."""
+    ns = occ_row.shape[-1]
+    free = ~occ_row
+    lane = torch.arange(ns, device=occ_row.device)
+    order = torch.argsort(torch.where(free, lane, ns + lane))
+    rank_valid = lane < torch.minimum(free.sum(), torch.as_tensor(
+        count, device=occ_row.device))
+    return torch.where(rank_valid, order, ns).to(torch.int32)

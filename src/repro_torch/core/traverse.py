@@ -15,9 +15,12 @@ Three registries, as in the reference:
   -> (leaf_ids, path, stats | None)``, optionally with a fused
   traverse+probe entry. Built-in: ``"fused"`` (``kernels.fused_descent``,
   one CUDA kernel launch for a tree on the card).
-* **Scan backends** run a whole range scan; none is registered yet (the
-  range scan is a later slice), so :meth:`TraversalEngine.scan_path` is
-  ``None`` for every engine.
+* **Scan backends** run a whole range scan:
+  ``fn(tree, qb, ql, max_items=..., collect_stats=...)
+  -> (out_kid, out_val, emitted, rearranged)``. Built-in: ``"fused"``
+  (``kernels.fused_scan``, one CUDA kernel launch for a tree on the card).
+  :meth:`TraversalEngine.scan_path` is ``None`` for every other engine,
+  and ``core.batch_ops.range_scan`` then runs the plain chain walk.
 
 ``TraversalEngine`` is a frozen (hashable) dataclass; its ``collect_stats``
 flag is threaded into every backend, and with it off the returned
@@ -152,8 +155,14 @@ def _load_fused_backend() -> DescentBackend:
     return DescentBackend(fused_traverse, fused_traverse_probe)
 
 
+def _load_fused_scan_backend() -> ScanBackend:
+    from ..kernels.fused_scan.ops import fused_range_scan
+    return fused_range_scan
+
+
 register_backend("torch", branch_level)
 register_descent_backend("fused", loader=_load_fused_backend)
+register_scan_backend("fused", loader=_load_fused_scan_backend)
 
 LAYOUTS = ("tuple", "stacked")
 

@@ -60,6 +60,19 @@ __device__ __forceinline__ int cmp3_row_query(const uint8_t* __restrict__ row,
   return d != 0 ? sign(d) : sign(row_len - q_len);
 }
 
+// 3-way compare of two padded keys by ONE thread (no warp cooperation):
+// sign(a - b) at the first of the L bytes where they differ, else the
+// length tie-break — the same order as cmp3_row_query and
+// repro.core.keys.compare_padded, for kernels whose lanes each own keys.
+__device__ __forceinline__ int cmp3_bytes(const uint8_t* a, int a_len,
+                                          const uint8_t* b, int b_len, int L) {
+  for (int i = 0; i < L; ++i) {
+    const int d = int(a[i]) - int(b[i]);
+    if (d != 0) return sign(d);
+  }
+  return sign(a_len - b_len);
+}
+
 // 3-way compare of the query against a node's prefix over its first `plen`
 // bytes only: sign(query - prefix), 0 when they agree (`_prefix_cmp`).
 __device__ __forceinline__ int prefix_cmp(const uint8_t* __restrict__ prefix,

@@ -22,29 +22,17 @@
 #include <cstdint>
 
 #include "cmp.cuh"
-#include "feature_rounds.cuh"
+#include "descent.cuh"
 
 namespace fbt {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr int kSiblingHops = 2;  // repro.core.branch._SIBLING_HOPS
 
 struct DescentArgs {
   const uint8_t* qb;  // [B, L]
   const int32_t* ql;  // [B]
-  // stacked inner levels, [NL, C, ...]
-  const int32_t* knum;
-  const int32_t* plen;
-  const uint8_t* prefix;    // [NL, C, L]
-  const uint8_t* features;  // [NL, C, fs, NS]
-  const int32_t* children;  // [NL, C, NS]
-  const int32_t* anchors;   // [NL, C, NS]
-  // key pool
-  const uint8_t* key_bytes;  // [KC, L]
-  const int32_t* key_lens;   // [KC]
-  // leaves, [LC] / [LC, NS]
-  const int32_t* leaf_high;
-  const int32_t* leaf_next;
+  TreeView t;         // inner levels, key pool, leaf high keys and links
+  // leaf rows, [LC, NS]
   const uint8_t* leaf_tags;
   const uint8_t* leaf_occ;
   const int32_t* leaf_keyid;
@@ -57,14 +45,8 @@ struct DescentArgs {
   int32_t* val;
   int32_t* stats;  // [6, B]: feat_rounds, suffix_bs, key_compares,
                    //         lines_touched, sibling_hops, tag_candidates
-  int B, L, n_levels, C, fs, LC;
+  int B;
 };
-
-// Row index of node `id` in a table of `rows` rows; -1 names the last row
-// (the scratch row), as Python indexing does in the plain version.
-__device__ __forceinline__ int64_t row_of(int id, int rows) {
-  return id < 0 ? int64_t(id) + rows : int64_t(id);
-}
 
 __device__ __forceinline__ uint32_t fnv1a_tag(const uint8_t* __restrict__ q,
                                               int len, int L) {
@@ -74,90 +56,37 @@ __device__ __forceinline__ uint32_t fnv1a_tag(const uint8_t* __restrict__ q,
   return (h ^ (h >> 8)) & 0xFFu;
 }
 
+// At ns=64 without counters, ask for 6 resident blocks per SM (at most 40
+// registers a thread): the descent is latency bound, and left alone ptxas
+// gives the shared descent of descent.cuh 48 registers, so only 5 blocks
+// fit. At ns=128 the same cap makes ptxas spill, so it is not asked for.
 template <int NS, bool STATS, bool SIBLING, bool PROBE>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+__global__ void __launch_bounds__(32 * kWarpsPerBlock,
+                                  (NS == 64 && !STATS) ? 6 : 1)
 fused_descent(const DescentArgs a) {
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (b >= a.B) return;  // the whole warp leaves together
 
-  const int L = a.L;
+  const int L = a.t.L;
   const uint8_t* __restrict__ qrow = a.qb + int64_t(b) * L;
   const int qlen = a.ql[b];
   const WarpKey q = load_warp_key(qrow, L, lane);
-  const uint8_t* __restrict__ key_bytes = a.key_bytes;
-  const int32_t* __restrict__ key_lens = a.key_lens;
-  constexpr int kLinesPerRow = NS / 64 > 1 ? NS / 64 : 1;
-  const int kw_lines = (qlen + 63) / 64;
-  int fr = 0, sb = 0, kc = 0, li = 0;
 
   // ---- descent over the stacked levels ----
-  int nid = 0;  // root = node 0 of level 0
-  for (int l = 0; l < a.n_levels; ++l) {
-    if (lane == 0) a.path[int64_t(b) * a.n_levels + l] = nid;
-    const int64_t row = int64_t(l) * a.C + row_of(nid, a.C);
-    const int kn = a.knum[row];
-    int idx = 0;
-    if (kn > 1) {
-      const int kmax = kn - 1;
-      const int pl = a.plen[row];
-      const int pcmp = prefix_cmp(a.prefix + row * L, pl, q, lane);
-      bool need_bs = false;
-      RoundsOut r{0, true, 0, -1, 0};
-      if (!STATS && pcmp != 0) {
-        idx = pcmp < 0 ? 0 : kmax;  // the prefix decides; rounds not billed
-      } else {
-        r = feature_compare_rounds<NS, STATS>(
-            a.features + row * a.fs * NS, a.fs, qrow, pl, L, kn, pcmp, lane);
-        idx = r.idx;
-        need_bs = !r.resolved;
-      }
-      int kcl = 0;
-      if (need_bs) {  // suffix binary search over the surviving run
-        const int32_t* __restrict__ anch = a.anchors + row * NS;
-        int lo = r.run_lo, hi = r.run_hi + 1;
-        while (lo < hi) {
-          const int mid = min(max((lo + hi) >> 1, 0), NS - 1);
-          const int aid = max(anch[mid], 0);
-          const int c3 = cmp3_row_query(key_bytes + int64_t(aid) * L,
-                                        key_lens[aid], q, qlen, L, lane);
-          if (c3 <= 0) lo = mid + 1; else hi = mid;
-          ++kcl;
-        }
-        idx = min(max(lo - 1, 0), kmax);
-      }
-      if (STATS) {
-        fr += r.rounds;
-        sb += need_bs;
-        kc += kcl;
-        li += 1 + r.rounds * kLinesPerRow + kcl * (1 + kw_lines) + 1;
-      }
-    }
-    nid = a.children[row * NS + idx];
-  }
+  DescentCounters c;
+  int nid = descend_levels<NS, STATS, true>(
+      a.t, qrow, qlen, q, lane, a.path + int64_t(b) * a.t.n_levels, c);
 
   // ---- blink sibling hop: move right while query >= high key ----
   int hops = 0;
-  if (SIBLING) {
-    for (int h = 0; h < kSiblingHops; ++h) {
-      const int64_t lr = row_of(nid, a.LC);
-      const int hk = a.leaf_high[lr];
-      const int nx = a.leaf_next[lr];
-      if (hk < 0 || nx < 0) continue;
-      const int c = -cmp3_row_query(key_bytes + int64_t(hk) * L, key_lens[hk],
-                                    q, qlen, L, lane);
-      if (c >= 0) {
-        nid = nx;
-        ++hops;
-      }
-    }
-  }
+  if (SIBLING) nid = sibling_hop(a.t, nid, q, qlen, lane, hops);
   if (lane == 0) a.leaf[b] = nid;
 
   // ---- hashtag probe with candidate-by-candidate full-key verify ----
   int n_cand = 0;
   if (PROBE) {
-    const int64_t lr = row_of(nid, a.LC);
+    const int64_t lr = row_of(nid, a.t.LC);
     const uint8_t* __restrict__ tags = a.leaf_tags + lr * NS;
     const uint8_t* __restrict__ occ = a.leaf_occ + lr * NS;
     const uint32_t tag = fnv1a_tag(qrow, qlen, L);
@@ -179,8 +108,8 @@ fused_descent(const DescentArgs a) {
         const int s = 64 * i + __ffsll(static_cast<long long>(w)) - 1;
         w &= w - 1;
         const int kd = max(a.leaf_keyid[lr * NS + s], 0);
-        if (cmp3_row_query(key_bytes + int64_t(kd) * L, key_lens[kd], q, qlen,
-                           L, lane) == 0) {
+        if (cmp3_row_query(a.t.key_bytes + int64_t(kd) * L, a.t.key_lens[kd],
+                           q, qlen, L, lane) == 0) {
           hit = true;
           slot = s;
         }
@@ -195,10 +124,10 @@ fused_descent(const DescentArgs a) {
 
   if (STATS && lane == 0) {
     const int64_t B = a.B;
-    a.stats[0 * B + b] = fr;
-    a.stats[1 * B + b] = sb;
-    a.stats[2 * B + b] = kc;
-    a.stats[3 * B + b] = li;
+    a.stats[0 * B + b] = c.feat_rounds;
+    a.stats[1 * B + b] = c.suffix_bs;
+    a.stats[2 * B + b] = c.key_compares;
+    a.stats[3 * B + b] = c.lines_touched;
     a.stats[4 * B + b] = hops;
     if (PROBE) a.stats[5 * B + b] = n_cand;
   }
@@ -249,16 +178,16 @@ extern "C" int fbt_fused_descent(
   fbt::DescentArgs a;
   a.qb = static_cast<const uint8_t*>(qb);
   a.ql = static_cast<const int32_t*>(ql);
-  a.knum = static_cast<const int32_t*>(knum);
-  a.plen = static_cast<const int32_t*>(plen);
-  a.prefix = static_cast<const uint8_t*>(prefix);
-  a.features = static_cast<const uint8_t*>(features);
-  a.children = static_cast<const int32_t*>(children);
-  a.anchors = static_cast<const int32_t*>(anchors);
-  a.key_bytes = static_cast<const uint8_t*>(key_bytes);
-  a.key_lens = static_cast<const int32_t*>(key_lens);
-  a.leaf_high = static_cast<const int32_t*>(leaf_high);
-  a.leaf_next = static_cast<const int32_t*>(leaf_next);
+  a.t.knum = static_cast<const int32_t*>(knum);
+  a.t.plen = static_cast<const int32_t*>(plen);
+  a.t.prefix = static_cast<const uint8_t*>(prefix);
+  a.t.features = static_cast<const uint8_t*>(features);
+  a.t.children = static_cast<const int32_t*>(children);
+  a.t.anchors = static_cast<const int32_t*>(anchors);
+  a.t.key_bytes = static_cast<const uint8_t*>(key_bytes);
+  a.t.key_lens = static_cast<const int32_t*>(key_lens);
+  a.t.leaf_high = static_cast<const int32_t*>(leaf_high);
+  a.t.leaf_next = static_cast<const int32_t*>(leaf_next);
   a.leaf_tags = static_cast<const uint8_t*>(leaf_tags);
   a.leaf_occ = static_cast<const uint8_t*>(leaf_occ);
   a.leaf_keyid = static_cast<const int32_t*>(leaf_keyid);
@@ -270,11 +199,11 @@ extern "C" int fbt_fused_descent(
   a.val = static_cast<int32_t*>(out_val);
   a.stats = static_cast<int32_t*>(out_stats);
   a.B = B;
-  a.L = L;
-  a.n_levels = n_levels;
-  a.C = C;
-  a.fs = fs;
-  a.LC = LC;
+  a.t.L = L;
+  a.t.n_levels = n_levels;
+  a.t.C = C;
+  a.t.fs = fs;
+  a.t.LC = LC;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ns == 64) return fbt::launch_stats<64>(a, stats, sibling, probe, s);
   if (ns == 128) return fbt::launch_stats<128>(a, stats, sibling, probe, s);

@@ -1,105 +1,30 @@
-"""Build and bind the fused whole-descent CUDA kernel
-(``csrc/fused_descent.cu``, sm_90a).
-
-The source is compiled with ``nvcc`` into a shared library with a plain C
-interface under ``build/kernels/`` of the checkout, at first use, and loaded
-with ``ctypes``. The library's name carries a hash of the sources and
-flags, so an edited source is rebuilt and a stale library is never loaded.
-Nothing here runs at import time: the CPU tests import this module on
-machines with no ``nvcc``.
-"""
+"""Bind the fused whole-descent CUDA kernel (``csrc/fused_descent.cu``,
+sm_90a) with ``ctypes``; ``kernels/nvcc.py`` builds it at first use.
+Nothing here runs at import time."""
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Optional
 
 import torch
 
-__all__ = ["build", "launch", "BUILD_DIR", "SOURCE"]
+from ..nvcc import CSRC, check, load
 
-_PKG = Path(__file__).resolve().parents[2]          # src/repro_torch
-CSRC = _PKG / "csrc"
+__all__ = ["launch", "SOURCE"]
+
 SOURCE = CSRC / "fused_descent.cu"
-_HEADERS = (CSRC / "cmp.cuh", CSRC / "feature_rounds.cuh")
-BUILD_DIR = _PKG.parents[1] / "build" / "kernels"   # <checkout>/build/kernels
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_LIB: Optional[ctypes.CDLL] = None
-BUILD_LOG = ""   # nvcc's output of the build this process made, if any
+_FN: Optional[ctypes._CFuncPtr] = None
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME:
-        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
-        if os.path.exists(cand):
-            return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("fused_descent: nvcc not found (set CUDA_HOME or "
-                           "put nvcc on PATH) — cannot build the CUDA kernel")
-    return found
-
-
-def build() -> Path:
-    """Compile the kernel library if this source has not been built yet;
-    returns its path. Writes to a temporary name first, so processes that
-    build at once never load a half-written file."""
-    global BUILD_LOG
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in (SOURCE,) + _HEADERS:
-        h.update(p.read_bytes())
-    out = BUILD_DIR / f"libfbt_fused_descent_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_LOG = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{BUILD_LOG}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.fbt_fused_descent
+def _fn():
+    global _FN
+    if _FN is None:
+        fn = load(SOURCE).fbt_fused_descent
         fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 10 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"fused_descent: {name} is on {t.device}, queries "
-                         f"on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"fused_descent: {name} has dtype {t.dtype}, the "
-                        f"kernel takes {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"fused_descent: {name} has shape "
-                         f"{tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"fused_descent: {name} must be contiguous")
+        _FN = fn
+    return _FN
 
 
 def launch(arrays, qb: torch.Tensor, ql: torch.Tensor, *, sibling_check: bool,
@@ -145,7 +70,7 @@ def launch(arrays, qb: torch.Tensor, ql: torch.Tensor, *, sibling_check: bool,
             ("leaf_occ", arrays.leaf_occ, torch.bool, (LC, ns)),
             ("leaf_keyid", arrays.leaf_keyid, i32, (LC, ns)),
             ("leaf_val", arrays.leaf_val, i32, (LC, ns))):
-        _check(name, t, dt, shape, dev)
+        check("fused_descent", name, t, dt, shape, dev)
 
     leaf = torch.empty((B,), dtype=i32, device=dev)
     path = torch.empty((B, NL), dtype=i32, device=dev)
@@ -155,11 +80,11 @@ def launch(arrays, qb: torch.Tensor, ql: torch.Tensor, *, sibling_check: bool,
     stats = torch.empty((6, B), dtype=i32, device=dev)
     if B == 0:
         return leaf, path, found, slot, val, stats
-    lib = _lib()
+    fn = _fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptr = lambda t: t.data_ptr()
-        err = lib.fbt_fused_descent(
+        err = fn(
             ptr(qb), ptr(ql), ptr(s.knum), ptr(s.plen), ptr(s.prefix),
             ptr(s.features), ptr(s.children), ptr(s.anchors),
             ptr(arrays.key_bytes), ptr(arrays.key_lens),

@@ -178,4 +178,5 @@ def test_backend_registry():
     assert DEFAULT_ENGINE.collect_stats
     assert TraversalEngine("fused").probe_path() is not None
     assert TraversalEngine("torch").probe_path() is None
-    assert TraversalEngine("fused").scan_path() is None
+    assert TraversalEngine("fused").scan_path() is not None
+    assert TraversalEngine("torch").scan_path() is None
