@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's two main paths on indexes of the size their users run:
-the batched point lookup (``core.batch_ops.lookup_batch`` with
+Drives the port's main paths on indexes of the size their users run: the
+batched point lookup (``core.batch_ops.lookup_batch`` with
 ``TraversalEngine("fused")``, one launch of the fused-descent kernel K1 per
-batch) and YCSB workload E (``insert_batch`` then ``range_scan`` with the
-``"fused"`` engine; the scan is one launch of the fused-scan kernel K2):
+batch), YCSB workload E (``insert_batch`` then ``range_scan`` with the
+``"fused"`` engine; the scan is one launch of the fused-scan kernel K2),
+the device build and ``rebuild``, and the paper's factor analysis (Fig.
+12(a)) through the per-level engine ``"cuda"`` (one launch of the
+feature-comparison kernel K3 per level) and ``probe_cuda`` (the hashtag
+leaf-filter kernel K4):
 
 1. the card's name and power limit;
 2. build of every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
@@ -17,11 +21,9 @@ batch) and YCSB workload E (``insert_batch`` then ``range_scan`` with the
    present key must be found with its value, and K1 must equal the plain
    torch version on the card bit for bit (leaf, path, found, slot, val and
    all six counters; stats on and off, sibling check on and off);
-4. ``url``: URL keys (width 72, heavy shared prefixes), 1,000,000, the same
-   checks, plus a tree whose parents are stale (blink sibling hops);
-5. ``int-ns128``: ns=128 with 1,000,000 integer keys (width 8), the same
-   checks, plus stale parents that need two sibling hops;
-6. ``ycsb-e`` on the ycsb tree: one scan batch on the clean tree, then 16
+4. ``device-build`` of the same keys (``bulk_build(device=True)``): every
+   tree array equal to the host build's;
+5. ``ycsb-e`` on the ycsb tree: one scan batch on the clean tree, then 16
    rounds of ``insert_batch`` (3,449 fresh keys, 5% of the round's
    operations) and ``range_scan`` (65,536 starts drawn zipf(0.99) over the
    keys present, a third of them between keys; ``max_items`` 50, as
@@ -30,17 +32,36 @@ batch) and YCSB workload E (``insert_batch`` then ``range_scan`` with the
    for bit on the clean and the dirtied tree (stats on and off, and the
    always-sort plain version), and 1,024 scans of each checked batch must
    equal a numpy oracle of the live keys read back from the tree;
-7. ``int-ns128-append``: 20,480 keys appended above the maximum of the int
-   tree in batches of 4,096 (leaf splits and inner inserts), then found,
-   and K2 held against the plain version inside the appended range;
-8. ``url-card-vs-cpu``: inserts (fit and split paths), an update and a
+6. ``rebuild``: 4,096 present keys removed from the dirtied tree, then
+   ``rebuild`` on the card; the result must equal the host build of the
+   live key set, report the expected ``n_live`` and ``reclaimed``, find
+   every live key with its value (K1) and no removed one, and scan with no
+   dirty leaf (K2);
+7. ``factor`` on the rebuilt tree (fs=4) and a device-built fs=2 tree of
+   the same keys: base, +prefix, +feature2, +feature4, +hashtag over
+   65,536 zipf(0.99) present queries (``benchmarks/factor_analysis.py``);
+   every key found with the same value in every step; engine ``"cuda"`` ==
+   ``"torch"`` == ``"fused"`` on every output and counter (both layouts,
+   stats on and off); K3 and K4 == their plain versions on every level's
+   inputs; ``probe_cuda`` == ``leaf.probe``; launches == calls;
+8. ``url``: URL keys (width 72, heavy shared prefixes), 1,000,000, the
+   checks of 3, plus a tree whose parents are stale (blink sibling hops);
+   then ``device-build`` at fs=4 and fs=2 and ``factor`` on those trees,
+   with the ``"cuda"`` engine over a stale-parent copy equal to K1;
+9. ``url-card-vs-cpu``: inserts (fit and split paths), an update and a
    remove on the url tree on the card and on a CPU copy; every tree array
    must be bit-equal afterwards (no scatter depends on which writer CUDA
    picks);
-9. timing with CUDA events: K1 on the main lookup batch; K2 on the last
-   scan batch of the dirtied and of the clean tree; the plain versions;
-   ``lookup_batch``, ``range_scan`` and ``insert_batch`` end to end (host
-   clock); each kernel's bound.
+10. ``int-ns128``: ns=128 with 1,000,000 integer keys (width 8), the checks
+    of 3, plus stale parents that need two sibling hops; then
+    ``int-ns128-append``: 20,480 keys appended above the maximum in batches
+    of 4,096 (leaf splits and inner inserts), found, and K2 held against
+    the plain version inside the appended range;
+11. timing with CUDA events: K1 on the main lookup batch; K2 on the last
+    scan batch of the dirtied and of the clean tree; K3 at every level and
+    K4 on the factor batch of the rebuilt tree; the plain versions;
+    ``lookup_batch`` (engines ``"fused"`` and ``"cuda"``), ``range_scan``
+    and ``insert_batch`` end to end (host clock); each kernel's bound.
 
 Each phase prints one JSON line. The line before the last holds the
 kernels table; the last line is ``{"ok": true, "device": ...}``. The script
@@ -51,6 +72,7 @@ port's sources are not beside it, or when any check fails. Run:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -227,18 +249,25 @@ def kernel_vs_plain(tree, qb, ql) -> int:
                 if dk.keys() != dp.keys():
                     raise AssertionError(f"output sets differ: {dk.keys()} "
                                          f"vs {dp.keys()}")
-                for name in dk:
-                    a, b = dk[name], dp[name]
-                    if a.shape != b.shape or a.dtype != b.dtype:
-                        raise AssertionError(
-                            f"{name}: kernel {a.dtype}{tuple(a.shape)} vs "
-                            f"plain {b.dtype}{tuple(b.shape)}")
-                    diff = int((a.long() - b.long()).abs().max()) if a.numel() else 0
-                    worst = max(worst, diff)
-                    if diff:
-                        raise AssertionError(
-                            f"kernel != plain on {name} (probe={probe}, "
-                            f"stats={stats}, sibling={sib}): max |diff| {diff}")
+                worst = max(worst, _exact(
+                    f"K1 (probe={probe}, stats={stats}, sibling={sib})",
+                    list(dk), list(dk.values()), [dp[n] for n in dk]))
+    return worst
+
+
+def _exact(what, names, got, want) -> int:
+    """Largest |difference| between two sequences of tensors, which must be
+    0 (and agree in dtype and shape)."""
+    worst = 0
+    for name, a, b in zip(names, got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{what} {name}: {a.dtype}{tuple(a.shape)} "
+                                 f"vs {b.dtype}{tuple(b.shape)}")
+        diff = int((a.long() - b.long()).abs().max()) if a.numel() else 0
+        if diff:
+            raise AssertionError(f"{what} differs on {name}: max |diff| "
+                                 f"{diff}")
+        worst = max(worst, diff)
     return worst
 
 
@@ -378,7 +407,8 @@ def tree_diffs(ta, tb):
     """Names of the arrays that differ in dtype, shape or any value."""
     out = []
     for (name, x), (_, y) in zip(tree_fields(ta), tree_fields(tb)):
-        x, y = x.cpu(), y.cpu()
+        if x.device != y.device:
+            x, y = x.cpu(), y.cpu()
         if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
             out.append(name)
     return out
@@ -401,17 +431,8 @@ def scan_kernel_vs_plain(tree, qb, ql, max_items: int) -> int:
         for force in (False, True):
             p = ref.fused_range_scan_ref(tree, qb, ql, max_items=max_items,
                                          collect_stats=stats, force_sort=force)
-            for name, a, b in zip(SCAN_OUT, k, p):
-                if a.shape != b.shape or a.dtype != b.dtype:
-                    raise AssertionError(
-                        f"{name}: kernel {a.dtype}{tuple(a.shape)} vs plain "
-                        f"{b.dtype}{tuple(b.shape)}")
-                diff = int((a.long() - b.long()).abs().max()) if a.numel() else 0
-                worst = max(worst, diff)
-                if diff:
-                    raise AssertionError(
-                        f"K2 != plain on {name} (stats={stats}, "
-                        f"force_sort={force}): max |diff| {diff}")
+            worst = max(worst, _exact(
+                f"K2 (stats={stats}, force_sort={force})", SCAN_OUT, k, p))
     return worst
 
 
@@ -556,7 +577,7 @@ def run_ycsb_e(tree, kb, kl, *, seed, device, rounds=16, n_ins=3449,
            "insert_batch_k1_launches": ins_k1,
            "tree_bytes": tree_bytes(tree)}
     emit(out)
-    return clean, tree, first, last, out
+    return clean, tree, first, last, (ins_kb, ins_kl, ins_val), out
 
 
 def run_append(tree, kb, *, seed, device, n_app=20_480, batch=4096,
@@ -681,6 +702,343 @@ def run_card_vs_cpu(tree, kb, kl, *, seed, device, n_batches=8, batch=4096):
            "card_s": card_s, "cpu_s": host_s}
     emit(out)
     return out
+
+
+# ------------------------------------------------------- build and rebuild
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_device_build(name, kb, kl, cfg, *, device, host=None, host_s=None):
+    """``bulk_build(device=True)`` on ``device`` against the host build of
+    the same keys (values ``arange(n)``; ``host``, built here when not
+    given, and ``host_s`` its build time): every tree array bit-equal.
+    Returns ``(device-built tree, phase line)``."""
+    from repro_torch.core import fbtree
+    from repro_torch.core.keys import KeySet
+    n = kb.shape[0]
+    vals = np.arange(n, dtype=np.int32)
+    if host is None:
+        t0 = time.perf_counter()
+        host = fbtree.bulk_build(cfg, KeySet(kb, kl), vals, target=device)
+        _sync(device)
+        host_s = time.perf_counter() - t0
+    _sync(device)
+    t0 = time.perf_counter()
+    built = fbtree.bulk_build(cfg, KeySet(kb, kl), vals, device=True,
+                              target=device)
+    _sync(device)
+    dev_s = time.perf_counter() - t0
+    diffs = tree_diffs(built, host)
+    n_fields = sum(1 for _ in tree_fields(built))
+    if diffs:
+        raise AssertionError(f"device-build {name}: arrays differ from the "
+                             f"host build: {diffs}")
+    out = {"phase": "device-build", "tree": name, "keys": n, "fs": cfg.fs,
+           "ns": cfg.ns, "n_levels": cfg.n_levels, "device_build_s": dev_s,
+           "host_build_s": host_s, "fields_compared": n_fields,
+           "fields_equal": n_fields - len(diffs)}
+    emit(out)
+    return built, out
+
+
+def _lookup_in_batches(tree, kb_d, kl_d, batch, engine):
+    """(found, vals) of every row of ``kb_d`` through ``lookup_batch``."""
+    from repro_torch.core import batch_ops
+    found, vals = [], []
+    for lo in range(0, kb_d.shape[0], batch):
+        v, rep = batch_ops.lookup_batch(tree, kb_d[lo:lo + batch],
+                                        kl_d[lo:lo + batch], engine=engine)
+        found.append(rep.found)
+        vals.append(v)
+    return torch.cat(found), torch.cat(vals)
+
+
+def run_rebuild(dirty, kb, kl, inserts, *, seed, device, n_remove=4096,
+                batch=65_536, max_items=50):
+    """Remove ``n_remove`` present keys from the tree YCSB-E dirtied, then
+    ``rebuild`` it on the card: the result must equal the host build of the
+    live key set (the script's own oracle) in every array, report the
+    expected ``n_live`` and ``reclaimed``, find every live key with its
+    value through K1 and no removed one, and scan with no dirty leaf (K2's
+    ``rearranged`` 0). Returns ``(rebuilt tree, (live kb, kl, vals))``."""
+    from repro_torch.core import batch_ops, fbtree
+    from repro_torch.core.keys import KeySet
+    from repro_torch.core.traverse import TraversalEngine
+    from repro_torch.kernels.fused_scan import ops as k2
+
+    ins_kb, ins_kl, ins_val = inserts
+    n = kb.shape[0]
+    all_kb = np.concatenate([kb, ins_kb])
+    all_kl = np.concatenate([kl, ins_kl])
+    all_val = np.concatenate([np.arange(n, dtype=np.int32), ins_val])
+    total = all_kb.shape[0]
+    rng = np.random.default_rng(seed + 6)
+    rm = rng.choice(total, n_remove, replace=False)
+    eng = TraversalEngine("fused")
+    tree, rep = batch_ops.remove_batch(dirty, all_kb[rm], all_kl[rm],
+                                       engine=eng)
+    if not bool(rep.found.all()):
+        raise AssertionError("rebuild: a key chosen for removal was absent")
+    live = np.ones(total, bool)
+    live[rm] = False
+    key_count = int(tree.arrays.key_count)
+
+    _sync(device)
+    base = torch.cuda.memory_allocated() if tree.device.type == "cuda" else 0
+    if tree.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rebuilt, brep = batch_ops.rebuild(tree)
+    _sync(device)
+    rebuild_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() if tree.device.type == "cuda"
+            else 0)
+    del tree
+    n_live, n_leaves, reclaimed, error = (int(x) for x in brep)
+    if (error or n_live != int(live.sum()) or reclaimed != key_count - n_live
+            or reclaimed != n_remove):
+        raise AssertionError(f"rebuild: report {brep}, expected n_live "
+                             f"{int(live.sum())}, reclaimed {n_remove}")
+
+    lkb, lkl, lval = all_kb[live], all_kl[live], all_val[live]
+    t0 = time.perf_counter()
+    fresh = fbtree.bulk_build(rebuilt.config, KeySet(lkb, lkl), lval,
+                              target=device)
+    _sync(device)
+    host_s = time.perf_counter() - t0
+    diffs = tree_diffs(rebuilt, fresh)
+    n_fields = sum(1 for _ in tree_fields(rebuilt))
+    del fresh
+    if diffs:
+        raise AssertionError(f"rebuild != host build of the live set: "
+                             f"{diffs}")
+
+    # by value: key ids are not stable across a rebuild
+    ins_live = live[n:]
+    found, vals = _lookup_in_batches(
+        rebuilt, torch.from_numpy(ins_kb[ins_live]).to(device),
+        torch.from_numpy(ins_kl[ins_live]).to(device), batch, eng)
+    ins_found = int((found & (vals == torch.from_numpy(
+        ins_val[ins_live]).to(device))).sum())
+    sample = rng.choice(n_live, batch, replace=False)
+    found, vals = _lookup_in_batches(
+        rebuilt, torch.from_numpy(lkb[sample]).to(device),
+        torch.from_numpy(lkl[sample]).to(device), batch, eng)
+    sample_found = int((found & (vals == torch.from_numpy(
+        lval[sample]).to(device))).sum())
+    found, _ = _lookup_in_batches(
+        rebuilt, torch.from_numpy(all_kb[rm]).to(device),
+        torch.from_numpy(all_kl[rm]).to(device), batch, eng)
+    removed_found = int(found.sum())
+    if (ins_found != int(ins_live.sum()) or sample_found != batch
+            or removed_found):
+        raise AssertionError(
+            f"rebuild: found {ins_found} of {int(ins_live.sum())} live "
+            f"inserted keys, {sample_found} of {batch} sampled live keys, "
+            f"{removed_found} removed keys")
+
+    idx = torch.from_numpy(zipf_indices(rng, n_live, batch)).to(device)
+    qb = torch.from_numpy(lkb).to(device)[idx]
+    ql = torch.from_numpy(lkl).to(device)[idx]
+    qb[::3, -1] ^= 0xA5
+    l0 = k2.LAUNCHES
+    _, _, emitted, rearranged = batch_ops.range_scan(
+        rebuilt, qb, ql, max_items=max_items, engine=eng)
+    if rebuilt.device.type == "cuda" and k2.LAUNCHES != l0 + 1:
+        raise AssertionError("rebuild: range_scan did not launch K2 once")
+    rearr = int(rearranged.sum())
+    if rearr != 0:
+        raise AssertionError(f"rebuild: {rearr} dirty leaves scanned in the "
+                             f"rebuilt tree")
+    err = scan_kernel_vs_plain(rebuilt, qb, ql, max_items)
+    out = {"phase": "rebuild", "keys_before": total, "removed": n_remove,
+           "n_live": n_live, "n_leaves": n_leaves, "reclaimed": reclaimed,
+           "error": bool(error), "rebuild_s": rebuild_s,
+           "peak_bytes": peak, "bytes_before": base,
+           "host_build_of_live_set_s": host_s,
+           "fields_compared": n_fields, "fields_equal": n_fields - len(diffs),
+           "inserted_live_found": ins_found, "live_sample_found": sample_found,
+           "removed_found": removed_found,
+           "emitted_per_scan": float(emitted.float().mean()),
+           "rearranged": rearr, "scan_kernel_vs_plain_max_abs_err": err,
+           "tree_bytes": tree_bytes(rebuilt)}
+    emit(out)
+    return rebuilt, (lkb, lkl, lval), out
+
+
+# ---------------------------------------------------------- factor analysis
+
+# (label, fs of the tree, variant) — benchmarks/factor_analysis.py's plan
+FACTOR_STEPS = (("base", 4, "base"), ("+prefix", 4, "prefix"),
+                ("+feature2", 2, "feature"), ("+feature4", 4, "feature"),
+                ("+hashtag", 4, "feature+hash"))
+K3_OUT = ("idx", "resolved", "run_lo", "run_hi", "rounds")
+K4_OUT = ("cand", "first", "count")
+
+
+def k3_vs_plain(feats, qfeat, knum, pcmp) -> int:
+    """K3 against its plain version on the same inputs, stats on and off."""
+    from repro_torch.kernels.feature_branch import ops, ref
+    worst = 0
+    for stats in (True, False):
+        k = ops.feature_branch(feats, qfeat, knum, pcmp, collect_stats=stats)
+        p = list(ref.feature_compare_rounds(feats, qfeat, knum, pcmp,
+                                            collect_stats=stats))
+        p[1] = p[1].to(torch.int32)
+        worst = max(worst, _exact(f"K3 (stats={stats})", K3_OUT, k, p))
+    return worst
+
+
+def k4_vs_plain(tags, occ, qtag) -> int:
+    """K4 against its plain version on the same inputs."""
+    from repro_torch.kernels.leaf_probe import ops, ref
+    return _exact("K4", K4_OUT, ops.leaf_probe(tags, occ, qtag),
+                  ref.leaf_probe_ref(tags, occ, qtag))
+
+
+def _variant_outputs(out):
+    """(found, val, stats, leaf stats) -> {name: tensor}."""
+    found, val, st, ls = out
+    d = {"found": found.to(torch.int32), "val": val}
+    d.update({f"b.{f}": getattr(st, f) for f in st._fields})
+    d.update({f"l.{f}": getattr(ls, f) for f in ls._fields})
+    return d
+
+
+def engine_parity(tree, qb, ql) -> int:
+    """Engine "cuda" (K3 per level) against "torch" and K1's "fused", both
+    layouts, stats on and off: the descent (leaf ids, per-level paths,
+    counters) and the feature variants of lookup_variant must be equal."""
+    from repro_torch.core.baseline import lookup_variant
+    from repro_torch.core.traverse import TraversalEngine
+    worst = 0
+    for stats in (True, False):
+        engines = [TraversalEngine(b, l, collect_stats=stats)
+                   for b in ("cuda", "torch") for l in ("tuple", "stacked")]
+        engines.append(TraversalEngine("fused", collect_stats=stats))
+        ref_d = ref_v = None
+        for eng in engines:
+            leaf, path, st = eng.traverse(tree, qb, ql)
+            d = _flat_outputs((leaf, path, None, None, None, st, None))
+            v = [_variant_outputs(lookup_variant(tree, qb, ql, var, eng))
+                 for var in ("feature", "feature+hash")]
+            if ref_d is None:
+                ref_d, ref_v = d, v
+                continue
+            what = f"engine {eng.backend}/{eng.layout} (stats={stats})"
+            worst = max(worst, _exact(what, list(d), list(d.values()),
+                                      [ref_d[k] for k in d]))
+            for x, y in zip(v, ref_v):
+                worst = max(worst, _exact(what, list(x), list(x.values()),
+                                          [y[k] for k in x]))
+    return worst
+
+
+def run_factor(name, trees, kb, kl, vals, *, seed, device, batch=65_536,
+               stale=False):
+    """The five steps of the paper's Fig. 12(a) over the trees of ``trees``
+    (fs -> tree of the same keys): 65,536 zipf(0.99) present queries through
+    ``lookup_variant`` with ``TraversalEngine("cuda", "stacked")`` (K3 on
+    every level of the feature steps), then K4 through ``probe_cuda`` on the
+    +hashtag leaves. All keys found with the same values in every step.
+    Then, outside the counted path: engine "cuda" == "torch" == "fused", K3
+    and K4 == their plain versions on every level's inputs, ``probe_cuda``
+    == ``leaf.probe``, and (``stale``) the cuda engine over a stale-parent
+    copy == K1."""
+    from repro_torch.core import batch_ops
+    from repro_torch.core.baseline import lookup_variant
+    from repro_torch.core.branch import level_inputs
+    from repro_torch.core.keys import fnv1a_tags
+    from repro_torch.core.leaf import probe
+    from repro_torch.core.traverse import TraversalEngine
+    from repro_torch.kernels.feature_branch import ops as k3
+    from repro_torch.kernels.leaf_probe import ops as k4
+
+    rng = np.random.default_rng(seed + 7)
+    n = kb.shape[0]
+    idx = torch.from_numpy(zipf_indices(rng, n, batch)).to(device)
+    qb = torch.from_numpy(kb).to(device)[idx]
+    ql = torch.from_numpy(kl).to(device)[idx]
+    want = torch.from_numpy(vals).to(device)[idx]
+    eng = TraversalEngine("cuda", "stacked")
+    n_levels = trees[4].config.n_levels
+    on_card = torch.device(device).type == "cuda"
+
+    k3.LAUNCHES = k4.LAUNCHES = 0          # counts from this path only
+    rows, k3_calls = [], 0
+    for label, fs, variant in FACTOR_STEPS:
+        found, val, st, ls = lookup_variant(trees[fs], qb, ql, variant,
+                                            engine=eng)
+        k3_calls += n_levels if variant.startswith("feature") else 0
+        if not bool((found & (val == want)).all()):
+            raise AssertionError(f"factor {name} {label}: "
+                                 f"{int((~found).sum())} keys not found")
+        rows.append({"step": label, "fs": fs,
+                     "key_cmp/op": float(st.key_compares.double().mean()),
+                     "lines/op": float(st.lines_touched.double().mean()),
+                     "feat_rounds/op": float(st.feat_rounds.double().mean()),
+                     "suffix_bs/op": float(st.suffix_bs.double().mean())})
+    tree = trees[4]
+    leaf, path, _ = eng.traverse(tree, qb, ql)
+    k3_calls += n_levels
+    got = k4.probe_cuda(tree, leaf, qb, ql)
+    k3_launches, k4_launches = k3.LAUNCHES, k4.LAUNCHES
+    if on_card and (k3_launches, k4_launches) != (k3_calls, 1):
+        raise AssertionError(f"factor {name}: {k3_launches} K3 launches for "
+                             f"{k3_calls} level calls, {k4_launches} K4 "
+                             f"launches for 1 probe_cuda call")
+
+    worst = _exact("probe_cuda vs leaf.probe", ("found", "slot", "val"),
+                   got[:3], probe(tree, leaf, qb, ql)[:3])
+    plain_st = probe(tree, leaf, qb, ql)[3]
+    worst = max(worst, _exact("probe_cuda stats", got[3]._fields, got[3],
+                              plain_st))
+    worst = max(worst, k4_vs_plain(tree.arrays.leaf_tags[leaf.long()],
+                                   tree.arrays.leaf_occ[leaf.long()],
+                                   fnv1a_tags(qb, ql)))
+    k4_err = worst
+    k3_err = 0
+    for fs, t in sorted(trees.items()):
+        worst = max(worst, engine_parity(t, qb, ql))
+        _, tpath, _ = TraversalEngine("torch").traverse(t, qb, ql)
+        for level, nid in zip(t.arrays.levels, tpath):
+            k3_err = max(k3_err, k3_vs_plain(*level_inputs(level, nid.long(),
+                                                           qb)))
+    out = {"phase": "factor", "tree": name, "keys": n, "queries": batch,
+           "steps": rows, "k3_launches": k3_launches, "k3_level_calls": k3_calls,
+           "k4_launches": k4_launches, "all_found": True,
+           "engine_parity_max_abs_err": worst,
+           "k3_vs_plain_max_abs_err": k3_err,
+           "k4_vs_plain_max_abs_err": k4_err}
+    if stale:
+        nl = int(tree.arrays.leaf_count)
+        leaves = list(range(3, nl - 3, max(1, (nl - 6) // 64)))[:64]
+        st_tree, moved = stale_parents(tree, leaves)
+        qi = torch.tensor(moved, device=device, dtype=torch.long)
+        sqb = torch.cat([st_tree.arrays.key_bytes[qi], qb[:4096]])
+        sql = torch.cat([st_tree.arrays.key_lens[qi], ql[:4096]])
+        v_c, r_c = batch_ops.lookup_batch(st_tree, sqb, sql, engine=eng)
+        v_f, r_f = batch_ops.lookup_batch(st_tree, sqb, sql,
+                                          engine=TraversalEngine("fused"))
+        _exact("stale parents: cuda vs fused", ("val",) + r_c._fields,
+               (v_c,) + tuple(r_c), (v_f,) + tuple(r_f))
+        _, _, hs = eng.traverse(st_tree, sqb[:len(moved)], sql[:len(moved)])
+        if not bool(r_c.found.all()) or not bool((hs.sibling_hops == 1).all()):
+            raise AssertionError(f"factor {name}: stale-parent lookups lost "
+                                 f"keys or took no sibling hop")
+        out["stale_parent_keys"] = len(moved)
+    emit(out)
+    print(f"factor {name} ({n} keys, {batch} zipf queries):", flush=True)
+    print("  step        fs  key_cmp/op  lines/op  feat_rounds/op  "
+          "suffix_bs/op", flush=True)
+    for r in rows:
+        print(f"  {r['step']:<10} {r['fs']:>3}  {r['key_cmp/op']:>10.4f}  "
+              f"{r['lines/op']:>8.3f}  {r['feat_rounds/op']:>14.4f}  "
+              f"{r['suffix_bs/op']:>12.4f}", flush=True)
+    return out, (qb, ql)
 
 
 # ------------------------------------------------------------------ timing
@@ -874,6 +1232,98 @@ def scan_timing(clean, tree, qb, ql, max_items: int, runs: int):
                 bound_by=b_by)
 
 
+def level_timing(tree, qb, ql, runs: int):
+    """K3 per launch at every level and K4 per launch on one batch of the
+    tree, stats off, beside their plain versions and their bounds; then
+    ``lookup_batch`` with the "cuda" engine (K3 per level) beside K1's
+    ``lookup_batch``, alternating, host clock.
+
+    Bounds: the larger of bytes / HBM rate and compares / integer rate, for
+    what this batch needs. K3 reads knum and pcmp (8 B a query), one
+    feature row (ns B) and one query byte per round a query takes (a
+    trivial node takes none), and writes 16 B a query; two compares a slot
+    and round. K4 reads the tag and occupancy rows (2 ns B) and the query
+    tag, and writes cand (ns B), first and count (8 B); two compares a
+    slot."""
+    from repro_torch.core import batch_ops
+    from repro_torch.core.branch import level_inputs
+    from repro_torch.core.keys import fnv1a_tags
+    from repro_torch.core.traverse import TraversalEngine
+    from repro_torch.kernels.feature_branch import ops as k3
+    from repro_torch.kernels.feature_branch import ref as k3ref
+    from repro_torch.kernels.leaf_probe import ops as k4
+    from repro_torch.kernels.leaf_probe import ref as k4ref
+
+    def bound(nbytes, ops_n):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops_n / INT_OPS_PER_S * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    B = qb.shape[0]
+    leaf, path, _ = TraversalEngine("torch").traverse(tree, qb, ql)
+    k3_rows = []
+    for lvl, (level, nid) in enumerate(zip(tree.arrays.levels, path)):
+        inp = level_inputs(level, nid.long(), qb)
+        ns = inp[0].shape[-1]
+        n_rounds = int(k3.feature_branch(*inp, collect_stats=True)[4].sum())
+        for _ in range(3):
+            k3.feature_branch(*inp, collect_stats=False)
+            k3ref.feature_compare_rounds(*inp, collect_stats=False)
+        k_ms, k_all = _event_ms(
+            lambda: k3.feature_branch(*inp, collect_stats=False), runs)
+        p_ms, _ = _event_ms(lambda: k3ref.feature_compare_rounds(
+            *inp, collect_stats=False), runs)
+        nbytes = B * 8 + n_rounds * (ns + 1) + B * 16
+        b_ms, b_by = bound(nbytes, 2 * ns * n_rounds)
+        row = {"metric": "k3_kernel_ms", "level": lvl, "value": k_ms,
+               "min": min(k_all), "max": max(k_all), "plain_ms": p_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
+               "rounds_per_query": n_rounds / B,
+               "trivial_share": float((inp[2] <= 1).double().mean()),
+               "runs": runs, "batch": B}
+        emit(row)
+        k3_rows.append(row)
+
+    lid = leaf.long()
+    a = tree.arrays
+    tags, occ, qtag = a.leaf_tags[lid], a.leaf_occ[lid], fnv1a_tags(qb, ql)
+    ns = tags.shape[-1]
+    for _ in range(3):
+        k4.leaf_probe(tags, occ, qtag), k4ref.leaf_probe_ref(tags, occ, qtag)
+    k4_ms, k4_all = _event_ms(lambda: k4.leaf_probe(tags, occ, qtag), runs)
+    k4p_ms, _ = _event_ms(lambda: k4ref.leaf_probe_ref(tags, occ, qtag),
+                          runs)
+    k4_bytes = B * (2 * ns + 1) + B * (ns + 8)
+    k4b_ms, k4_by = bound(k4_bytes, 2 * ns * B)
+    emit({"metric": "k4_kernel_ms", "value": k4_ms, "min": min(k4_all),
+          "max": max(k4_all), "plain_ms": k4p_ms, "bound_ms": k4b_ms,
+          "bound_by": k4_by, "bound_bytes": k4_bytes, "runs": runs,
+          "batch": B})
+
+    engines = {"cuda": TraversalEngine("cuda", "stacked", collect_stats=False),
+               "fused": TraversalEngine("fused", collect_stats=False)}
+    e2e = {k: [] for k in engines}
+    for r in range(runs + 2):
+        for name in (("cuda", "fused") if r % 2 else ("fused", "cuda")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch_ops.lookup_batch(tree, qb, ql, engine=engines[name])
+            torch.cuda.synchronize()
+            e2e[name].append((time.perf_counter() - t0) * 1e3)
+    for name, ts in e2e.items():
+        emit({"metric": "lookup_batch_ms", "engine": name, "tree": "rebuilt",
+              "value": statistics.median(ts[2:]), "runs": runs,
+              "clock": "host, synchronized"})
+    k3_by = ("bytes" if all(r["bound_by"] == "bytes" for r in k3_rows)
+             else "operations")
+    return {"k3": dict(ms=sum(r["value"] for r in k3_rows),
+                       plain_ms=sum(r["plain_ms"] for r in k3_rows),
+                       bound_ms=sum(r["bound_ms"] for r in k3_rows),
+                       bound_by=k3_by, levels=len(k3_rows)),
+            "k4": dict(ms=k4_ms, plain_ms=k4p_ms, bound_ms=k4b_ms,
+                       bound_by=k4_by)}
+
+
 # -------------------------------------------------------------------- main
 
 def _smi() -> str:
@@ -899,6 +1349,8 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
+        from repro_torch.core import fbtree
+        from repro_torch.core.keys import KeySet
         from repro_torch.kernels import nvcc
     except ImportError as e:
         print(f"chip_smoke: the port's sources are not beside the script "
@@ -924,13 +1376,33 @@ def main(argv=None) -> int:
     tree, (qb, ql), main_out = run_phase("ycsb", kb, kl, ns=64,
                                          batch=args.batch, seed=args.seed,
                                          device=dev)
-    clean, dirty, _, (sqb, sql, _), e_out = run_ycsb_e(
+    run_device_build("ycsb", kb, kl, tree.config, device=dev, host=tree,
+                     host_s=main_out["host_build_s"])
+    clean, dirty, _, (sqb, sql, _), inserts, e_out = run_ycsb_e(
         tree, kb, kl, seed=args.seed, device=dev, rounds=args.e_rounds,
         batch=args.batch)
-    del kb, kl
+    rebuilt, (lkb, lkl, lval), _ = run_rebuild(
+        dirty, kb, kl, inserts, seed=args.seed, device=dev, batch=args.batch)
+    del kb, kl, inserts
+    ycsb2 = fbtree.bulk_build(dataclasses.replace(rebuilt.config, fs=2),
+                              KeySet(lkb, lkl), lval, device=True, target=dev)
+    f_outs = [run_factor("ycsb-rebuilt", {2: ycsb2, 4: rebuilt}, lkb, lkl,
+                         lval, seed=args.seed, device=dev, batch=args.batch)]
+    fqb, fql = f_outs[0][1]
+    del ycsb2, lkb, lkl, lval
     ukb, ukl = url_keys(args.url_keys, args.seed)
-    url_tree, _, _ = run_phase("url", ukb, ukl, ns=64, batch=args.batch,
-                               seed=args.seed, device=dev, stale="single")
+    url_tree, _, u_out = run_phase("url", ukb, ukl, ns=64, batch=args.batch,
+                                   seed=args.seed, device=dev, stale="single")
+    url4, _ = run_device_build("url", ukb, ukl, url_tree.config, device=dev,
+                               host=url_tree, host_s=u_out["host_build_s"])
+    url2, _ = run_device_build("url", ukb, ukl,
+                               dataclasses.replace(url_tree.config, fs=2),
+                               device=dev)
+    f_outs.append(run_factor("url", {2: url2, 4: url4}, ukb, ukl,
+                             np.arange(ukb.shape[0], dtype=np.int32),
+                             seed=args.seed, device=dev, batch=args.batch,
+                             stale=True))
+    del url2, url4
     run_card_vs_cpu(url_tree, ukb, ukl, seed=args.seed, device=dev)
     del url_tree, ukb, ukl
     ikb, ikl = int_keys(args.int_keys, args.seed)
@@ -942,6 +1414,8 @@ def main(argv=None) -> int:
 
     t = timing(tree, qb, ql, args.runs)
     st = scan_timing(clean, dirty, sqb, sql, 50, args.runs)
+    lt = level_timing(rebuilt, fqb, fql, args.runs)
+    factor = [f for f, _ in f_outs]
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "fused_descent", "route": "cuda",
@@ -958,7 +1432,24 @@ def main(argv=None) -> int:
         "max_abs_err": max(e_out["kernel_vs_plain_max_abs_err"],
                            a_out["kernel_vs_plain_max_abs_err"]),
         "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
-        "bound_by": st["bound_by"], "library_ms": None}]})
+        "bound_by": st["bound_by"], "library_ms": None}, {
+        "name": "feature_branch", "route": "cuda",
+        "source": "src/repro_torch/csrc/feature_branch.cu",
+        "replaces": "src/repro/kernels/feature_branch/kernel.py:121",
+        "launches": sum(f["k3_launches"] for f in factor),
+        "max_abs_err": max(f["k3_vs_plain_max_abs_err"] for f in factor),
+        "ms": lt["k3"]["ms"], "plain_ms": lt["k3"]["plain_ms"],
+        "bound_ms": lt["k3"]["bound_ms"], "bound_by": lt["k3"]["bound_by"],
+        "library_ms": None,
+        "per": f"one descent: {lt['k3']['levels']} launches, one a level"}, {
+        "name": "leaf_probe", "route": "cuda",
+        "source": "src/repro_torch/csrc/leaf_probe.cu",
+        "replaces": "src/repro/kernels/leaf_probe/kernel.py:39",
+        "launches": sum(f["k4_launches"] for f in factor),
+        "max_abs_err": max(f["k4_vs_plain_max_abs_err"] for f in factor),
+        "ms": lt["k4"]["ms"], "plain_ms": lt["k4"]["plain_ms"],
+        "bound_ms": lt["k4"]["bound_ms"], "bound_by": lt["k4"]["bound_by"],
+        "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

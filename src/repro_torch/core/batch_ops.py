@@ -1,6 +1,6 @@
 """Batched tree operations — the port's counterpart of
 ``repro.core.batch_ops``: lookup, update, remove, insert (upsert) and
-range scan (rebuild is a later slice).
+range scan, and the rebuild barrier.
 
 Every op runs on the device its tree lives on. A point op is one engine
 descent plus one hashtag leaf probe; engines whose descent backend exposes
@@ -40,15 +40,18 @@ import torch
 
 from .. import obs
 from .branch import BranchStats
-from .fbtree import (BIG, EMPTY, FBTree, Level, TreeArrays, chunk_of_pos,
-                     chunk_start, recompute_inner_meta, stack_levels)
-from .keys import compare_padded, fnv1a_tags, pack_words_t
+from .fbtree import (BIG, EMPTY, FBTree, Level, TreeArrays,
+                     _device_build_from_sorted, chunk_of_pos, chunk_start,
+                     recompute_inner_meta, stack_levels)
+from .keys import (compare_padded, fnv1a_tags, lex_sort_indices_t,
+                   pack_words_t)
 from .leaf import LeafStats, probe
 from .traverse import TraversalEngine, resolve_engine
 
 __all__ = ["OpReport", "lookup_batch", "update_batch", "insert_batch",
            "remove_batch", "range_scan", "dedupe_last_wins",
-           "rowwise_lex_argsort", "traverse_path", "traverse_probe"]
+           "rowwise_lex_argsort", "traverse_path", "traverse_probe",
+           "BuildReport", "gather_live_sorted", "rebuild"]
 
 I32 = torch.int32
 
@@ -152,17 +155,10 @@ def dedupe_last_wins(qb: torch.Tensor, ql: torch.Tensor, seq: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Deterministic in-batch conflict resolution: highest seq per key wins.
     Returns ``(winners bool [B], conflicts int32 scalar)``."""
-    words = pack_words_t(qb)                      # [B, W]
-    B, W = words.shape
-    perm = torch.argsort(seq, stable=True)
-
-    def resort(col, perm):
-        return perm[torch.argsort(col[perm], stable=True)]
-
-    perm = resort(ql, perm)                       # length = least significant
-    for col in range(W - 1, -1, -1):
-        perm = resort(words[:, col], perm)
-    sb, sl = words[perm], ql[perm]
+    B = qb.shape[0]
+    order = torch.argsort(seq, stable=True)       # seq = least significant
+    perm = order[lex_sort_indices_t(qb[order], ql[order])]
+    sb, sl = qb[perm], ql[perm]
     same_next = torch.cat([
         (sb[1:] == sb[:-1]).all(-1) & (sl[1:] == sl[:-1]),
         torch.zeros((1,), dtype=torch.bool, device=qb.device)])
@@ -888,3 +884,97 @@ def range_scan(tree: FBTree, qb, ql, max_items: int = 64,
         obs.counter("op.emitted", op="scan").inc(int(em.sum()))
         obs.counter("op.rearranged", op="scan").inc(int(re.sum()))
     return out_kid, out_val, emitted, rearranged
+
+
+# --------------------------------------------------------------------------
+# rebuild — device-side bulk re-construction (DESIGN.md §5)
+# --------------------------------------------------------------------------
+
+class BuildReport(NamedTuple):
+    """Outcome of a device-side (re)build; every field a 0-d tensor."""
+    n_live: torch.Tensor     # int32 — keys carried into the new tree
+    n_leaves: torch.Tensor   # int32 — leaves the fresh build allocated
+    reclaimed: torch.Tensor  # int32 — key-pool rows freed (tombstones, dupes)
+    error: torch.Tensor      # bool — capacity exceeded; discard the result
+
+
+def gather_live_sorted(tree: FBTree):
+    """Gather a tree's live key set into a sorted, compacted, pool-shaped
+    snapshot: ``(kb, kl, ktags, vals, n_live)`` with rows ``[0, n_live)``
+    holding the live keys ascending and zeros everywhere else — exactly the
+    input contract of ``fbtree._device_build_from_sorted``. ``n_live`` is a
+    0-d int32 tensor; nothing here waits for the device.
+
+    :func:`rebuild` feeds it straight back into the device build, and the
+    shard layer (DESIGN.md §7) concatenates per-shard snapshots, which are
+    already globally sorted since shards are range-partitioned.
+    """
+    a, cfg = tree.arrays, tree.config
+    KC, L = cfg.key_cap, cfg.key_width
+    occ = a.leaf_occ.reshape(-1)                  # [(leaf_cap+1) * ns]
+    kid = torch.where(occ, a.leaf_keyid.reshape(-1), EMPTY)
+    kid_safe = torch.clamp(kid, min=0).long()
+    lens = torch.where(occ, a.key_lens[kid_safe], 0)
+    order = lex_sort_indices_t(a.key_bytes[kid_safe], lens,
+                               invalid=~occ)      # live slots first, sorted
+    del kid_safe, lens
+    n_live = occ.sum(dtype=I32)
+    skid = torch.clamp(kid[order], min=0).long()
+    r = torch.arange(order.shape[0], dtype=I32, device=occ.device)
+    valid = r < n_live                            # n_live <= KC always
+    dst = torch.where(valid, torch.clamp(r, max=KC), KC).long()
+    # every invalid lane writes zeros into the scratch row KC: the repeated
+    # writes all carry the same value, so CUDA's choice of writer cannot
+    # matter, and the pool tail past n_live stays zero
+    kb = torch.zeros((KC + 1, L), dtype=torch.uint8, device=occ.device)
+    kb[dst] = torch.where(valid[:, None], a.key_bytes[skid], 0)
+    kl = torch.zeros((KC + 1,), dtype=I32, device=occ.device)
+    kl[dst] = torch.where(valid, a.key_lens[skid], 0)
+    ktags = torch.zeros((KC + 1,), dtype=torch.uint8, device=occ.device)
+    ktags[dst] = torch.where(valid, a.key_tags[skid], 0)
+    vv = torch.zeros((KC + 1,), dtype=a.leaf_val.dtype, device=occ.device)
+    vv[dst] = torch.where(valid, a.leaf_val.reshape(-1)[order], 0)
+    return kb, kl, ktags, vv, n_live
+
+
+def _rebuild(tree: FBTree) -> Tuple[FBTree, BuildReport]:
+    a, cfg = tree.arrays, tree.config
+    kb, kl, ktags, vv, n_live = gather_live_sorted(tree)
+    arrays, err = _device_build_from_sorted(cfg, kb, kl, ktags, vv, n_live)
+    rep = BuildReport(n_live=n_live, n_leaves=arrays.leaf_count,
+                      reclaimed=(a.key_count - n_live).to(I32), error=err)
+    return FBTree(cfg, arrays), rep
+
+
+def rebuild(tree: FBTree) -> Tuple[FBTree, BuildReport]:
+    """Compact a split-fragmented tree by re-running the device bulk build
+    on the tree's device.
+
+    Gathers the live (key, value) pairs from the leaves
+    (:func:`gather_live_sorted`: packed-word sort, invalid slots last, pool
+    re-packed front to back) and reconstructs every level, tuple and
+    stacked layouts alike, through ``fbtree._device_build_from_sorted``.
+    The output tree is exactly what ``bulk_build`` (host or device) would
+    produce from the live key set.
+
+    Semantics w.r.t. the §2 protocol (DESIGN.md §5): a rebuild is a
+    bulk-synchronous barrier. Tombstoned keys are dropped and the pool is
+    compacted, so *key ids are not stable across a rebuild*; leaf versions
+    reset to zero and sibling links are relinked left to right. Results
+    cached from before the barrier (leaf ids, key ids, versions) must be
+    re-resolved by a fresh traversal.
+
+    Telemetry: the obs contract of :func:`lookup_batch` — span
+    ``op.rebuild``, counters ``op.calls`` and ``build.n_live`` /
+    ``build.reclaimed`` labelled ``op=rebuild``, drained with one
+    device-to-host copy of the report.
+    """
+    if not obs.enabled():
+        return _rebuild(tree)
+    with obs.span("op.rebuild"):
+        tree2, rep = _rebuild(tree)
+        n_live, reclaimed = torch.stack([rep.n_live, rep.reclaimed]).cpu()
+        obs.counter("op.calls", op="rebuild").inc()
+        obs.counter("build.n_live", op="rebuild").inc(int(n_live))
+        obs.counter("build.reclaimed", op="rebuild").inc(int(reclaimed))
+    return tree2, rep

@@ -25,8 +25,8 @@ from ..kernels.feature_branch.ref import feature_compare_rounds
 from .fbtree import FBTree, Level
 from .keys import compare_padded
 
-__all__ = ["BranchStats", "branch_level", "suffix_binary_search",
-           "to_sibling"]
+__all__ = ["BranchStats", "branch_level", "level_inputs",
+           "suffix_binary_search", "to_sibling"]
 
 _SIBLING_HOPS = 2  # bounded hops; batch ops keep parents exact so 2 suffices
 
@@ -113,22 +113,29 @@ def branch_level(level: Level, key_bytes: torch.Tensor, key_lens: torch.Tensor,
                               collect_stats)
 
 
-def _branch_level_full(level, key_bytes, key_lens, nid, knum, qb, ql,
-                       collect_stats):
-    ns = level.features.shape[-1]
+def level_inputs(level: Level, nid: torch.Tensor, qb: torch.Tensor):
+    """The feature rounds' inputs for a batch at one level: ``(feats [B, fs,
+    ns] u8, qfeat [B, fs] u8, knum [B], pcmp [B])`` — each query's node row
+    gathered, the 3-way prefix compare, and the query's byte ``plen + fid``
+    for every feature row (0 past the key width)."""
     fs = level.features.shape[-2]
     L = qb.shape[-1]
-    lines_per_row = max(1, ns // 64)
+    knum = level.knum[nid]
     plen = level.plen[nid]
-    prefix = level.prefix[nid]
-    feats = level.features[nid]               # [B, fs, ns]
-
-    pcmp = _first_diff_cmp(qb, prefix, plen)
-    # query byte plen+fid for every feature row, 0 past the key width
+    feats = level.features[nid]
+    pcmp = _first_diff_cmp(qb, level.prefix[nid], plen)
     qpos = plen[:, None] + torch.arange(fs, dtype=torch.int32,
                                         device=qb.device)[None, :]
     qfeat = torch.gather(qb, -1, torch.clamp(qpos, 0, L - 1).long())
     qfeat = torch.where(qpos < L, qfeat, 0).to(torch.uint8)
+    return feats, qfeat, knum, pcmp
+
+
+def _branch_level_full(level, key_bytes, key_lens, nid, knum, qb, ql,
+                       collect_stats):
+    ns = level.features.shape[-1]
+    lines_per_row = max(1, ns // 64)
+    feats, qfeat, _, pcmp = level_inputs(level, nid, qb)
 
     idx, resolved, run_lo, run_hi, rounds = feature_compare_rounds(
         feats, qfeat, knum, pcmp, collect_stats=collect_stats)

@@ -11,9 +11,13 @@ The same pointer-free structure-of-arrays layout as the reference
   sibling link + version word.
 
 Every field name, dtype and shape equals the reference's, including the
-trailing scratch row of every array. This module holds the host numpy build
-(:func:`bulk_build`), which runs the reference's algorithm on the host and
-moves each array to the target device once.
+trailing scratch row of every array. This module holds both builds of the
+reference: the host numpy build (:func:`bulk_build`), which runs on the
+host and moves each array to the target device once, and the device build
+(:func:`_device_build_from_sorted`, ``bulk_build(device=True)``), which
+sorts and builds on the target device and which ``batch_ops.rebuild``
+reruns over a tree's live keys. It also holds :func:`sharded_partition`,
+the range split a sharded build starts from.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from . import keys as K
 
 __all__ = ["TreeConfig", "Level", "TreeArrays", "FBTree", "EMPTY", "BIG",
            "bulk_build", "stack_levels", "chunk_start", "chunk_of_pos",
-           "recompute_inner_meta", "resolve_target"]
+           "recompute_inner_meta", "resolve_target", "sharded_partition"]
 
 EMPTY = -1
 BIG = 2**30
@@ -357,26 +361,27 @@ def bulk_build(cfg: TreeConfig, ks: K.KeySet, vals: np.ndarray,
                device: bool = False, *, target: Optional[str] = None) -> FBTree:
     """Bulk-load a tree from (possibly unsorted) unique keys.
 
-    Runs the reference's host numpy build (sort on host, chunk the sorted
-    run into balanced leaves, group bottom-up into inner levels, pad to the
-    fixed height with single-child chain nodes), then moves every array to
-    ``target`` once. ``target=None`` means the card and raises when there
-    is none; pass ``target="cpu"`` for the CPU.
+    ``device=False`` (default) runs the reference's host numpy build (sort
+    on host, chunk the sorted run into balanced leaves, group bottom-up
+    into inner levels, pad to the fixed height with single-child chain
+    nodes), then moves every array to ``target`` once. ``device=True``
+    runs the device pipeline on ``target`` (DESIGN.md §5): the packed-word
+    sort of :func:`keys.lex_sort_indices_t`, then
+    :func:`_device_build_from_sorted`. Both give bit-identical
+    :class:`TreeArrays`, stacked layout included. ``target=None`` means the
+    card and raises when there is none; pass ``target="cpu"`` for the CPU.
 
-    ``device=True`` (the reference's on-device build pipeline) is not
-    ported yet: it raises ``NotImplementedError`` (ROADMAP queue 1, slice 5).
     Shapes: ``ks.bytes`` is ``uint8 [n, key_width]``, ``ks.lens`` ``int32
     [n]``, ``vals`` ``[n]`` (cast to ``cfg.val_dtype``). Raises ValueError
-    on capacity overflow.
+    on capacity overflow, checked on the host for both paths (the
+    reference asserts).
     """
-    if device:
-        raise NotImplementedError(
-            "bulk_build(device=True): the on-device build pipeline is not "
-            "ported yet (ROADMAP queue 1, slice 5); use device=False")
     dev = resolve_target(target)
-    ns, fs, L = cfg.ns, cfg.fs, cfg.key_width
     n = ks.n
     _check_capacity(cfg, n)
+    if device:
+        return _bulk_build_device(cfg, ks, vals, dev)
+    ns, fs, L = cfg.ns, cfg.fs, cfg.key_width
     order = K.lex_sort_indices(ks)
     # every array gets one trailing scratch row (index cap) so masked scatters
     # have a conflict-free dump target; the watermarks never reach it.
@@ -483,3 +488,194 @@ def bulk_build(cfg: TreeConfig, ks: K.KeySet, vals: np.ndarray,
         leaf_count=i32(n_leaves),
     )
     return FBTree(cfg, arrays)
+
+
+# --------------------------------------------------------------------------
+# device build — sort and build on the target device (DESIGN.md §5)
+# --------------------------------------------------------------------------
+
+def _ceil_div(a: torch.Tensor, b: int) -> torch.Tensor:
+    return -torch.div(-a, b, rounding_mode="floor")
+
+
+def _device_build_from_sorted(cfg: TreeConfig, kb: torch.Tensor,
+                              kl: torch.Tensor, ktags: torch.Tensor,
+                              vals: torch.Tensor, n
+                              ) -> Tuple[TreeArrays, torch.Tensor]:
+    """Construct :class:`TreeArrays` from a sorted, compacted key pool.
+
+    Inputs are pool-shaped (``[key_cap + 1, ...]``) with rows ``[0, n)``
+    holding the keys in ascending order and zeros everywhere else; ``n`` is
+    a 0-d int32 tensor on the pool's device (``batch_ops.rebuild`` does not
+    know the live count on the host) or a Python int. Nothing here waits
+    for the device. Returns ``(arrays, error)`` where ``error`` (a 0-d bool
+    tensor) flags a capacity overflow; the arrays are then shape-valid
+    garbage and callers must discard them.
+
+    The pipeline (DESIGN.md §5): balanced chunking of the sorted run into
+    leaves via a pure gather grid (no scatter conflicts), then one bottom-up
+    pass per inner level — uniform grouping plus
+    :func:`recompute_inner_meta` segmented reductions. Grouping a
+    single-child run yields exactly the host build's chain-node padding, so
+    the result is bit-identical to the host path.
+    """
+    ns, fs = cfg.ns, cfg.fs
+    KC = cfg.key_cap
+    LC = cfg.leaf_cap + 1
+    dev = kb.device
+    i32 = torch.int32
+    n = torch.as_tensor(n, dtype=i32, device=dev)
+    lane = torch.arange(ns, dtype=i32, device=dev)
+
+    # ---- leaves: balanced chunking of the sorted key run ----
+    n_leaves = torch.clamp(_ceil_div(n, cfg.leaf_fill), min=1)
+    base = torch.div(n, n_leaves, rounding_mode="floor")
+    rem = n - base * n_leaves
+    li = torch.arange(LC, dtype=i32, device=dev)
+    lstart = chunk_start(li, base, rem)            # [LC]
+    lsize = base + (li < rem).to(i32)
+    lexists = li < n_leaves
+    pos = lstart[:, None] + lane[None, :]          # key id at (leaf, slot)
+    lvalid = lexists[:, None] & (lane[None, :] < lsize[:, None]) & (pos < n)
+    pos_safe = torch.clamp(pos, 0, KC).long()
+    leaf_keyid = torch.where(lvalid, pos, EMPTY).to(i32)
+    leaf_val = torch.where(lvalid, vals[pos_safe], 0).to(cfg.val_dtype)
+    leaf_tags = torch.where(lvalid, ktags[pos_safe], 0).to(torch.uint8)
+    nxt_ok = lexists & (li + 1 < n_leaves)
+    leaf_high = torch.where(nxt_ok, chunk_start(li + 1, base, rem),
+                            EMPTY).to(i32)
+    leaf_next = torch.where(nxt_ok, li + 1, EMPTY).to(i32)
+    # a chunk wider than ns would silently truncate at the lane mask — flag
+    # it (the host path raises on the same fill > ns misconfiguration)
+    err = (n_leaves > cfg.leaf_cap) | (torch.where(lexists, lsize, 0)
+                                       > ns).any()
+
+    # ---- inner levels bottom-up (a Python loop over the static height
+    # only); grouping a 1-child run reproduces the host chain padding ----
+    child_min = torch.where(lexists, lstart, 0)    # min key id per child
+    n_child = n_leaves
+    child_cap = LC
+    levels_rev: List[Level] = []
+    for lvl in range(cfg.n_levels - 1, -1, -1):
+        Cn = cfg.level_caps[lvl] + 1
+        n_nodes = torch.clamp(_ceil_div(n_child, cfg.inner_fill), min=1)
+        nb = torch.div(n_child, n_nodes, rounding_mode="floor")
+        nr = n_child - nb * n_nodes
+        ni = torch.arange(Cn, dtype=i32, device=dev)
+        nstart = chunk_start(ni, nb, nr)
+        nsize = nb + (ni < nr).to(i32)
+        nexists = ni < n_nodes
+        cpos = nstart[:, None] + lane[None, :]     # child id at (node, slot)
+        nvalid = (nexists[:, None] & (lane[None, :] < nsize[:, None])
+                  & (cpos < n_child))
+        cpos_safe = torch.clamp(cpos, 0, child_cap - 1).long()
+        children = torch.where(nvalid, cpos, EMPTY).to(i32)
+        anchors = torch.where(nvalid, child_min[cpos_safe], EMPTY).to(i32)
+        knum = torch.where(nexists, nsize, 0).to(i32)
+        pl, pf, ft = recompute_inner_meta(kb, kl, anchors, knum, fs)
+        levels_rev.append(Level(
+            knum=knum,
+            plen=torch.where(nexists, pl, 0).to(i32),
+            prefix=torch.where(nexists[:, None], pf, 0).to(torch.uint8),
+            features=torch.where(nexists[:, None, None], ft, 0
+                                 ).to(torch.uint8),
+            children=children, anchors=anchors,
+            count=n_nodes.to(i32)))
+        err = (err | (n_nodes > cfg.level_caps[lvl])
+               | (torch.where(nexists, nsize, 0) > ns).any())
+        child_min = torch.where(
+            nexists, child_min[torch.clamp(nstart, 0, child_cap - 1).long()],
+            0)
+        n_child = n_nodes
+        child_cap = Cn
+    err = err | (n_child != 1)                     # root must be one node
+    levels = tuple(levels_rev[::-1])
+
+    arrays = TreeArrays(
+        key_bytes=kb, key_lens=kl, key_tags=ktags,
+        key_count=n,
+        levels=levels,
+        stacked=stack_levels(levels),
+        leaf_tags=leaf_tags, leaf_keyid=leaf_keyid, leaf_val=leaf_val,
+        leaf_occ=lvalid,
+        leaf_high=leaf_high, leaf_next=leaf_next,
+        leaf_version=torch.zeros((LC,), dtype=i32, device=dev),
+        leaf_ordered=lexists,
+        leaf_count=n_leaves.to(i32),
+    )
+    return arrays, err
+
+
+def _bulk_build_device(cfg: TreeConfig, ks: K.KeySet, vals,
+                       dev: torch.device) -> FBTree:
+    """``bulk_build(device=True)`` body: device sort, then the build core,
+    both on ``dev``."""
+    n, L = ks.n, cfg.key_width
+    qb = torch.from_numpy(np.ascontiguousarray(ks.bytes)).to(dev)
+    ql = torch.from_numpy(np.asarray(ks.lens, np.int32)).to(dev)
+    order = K.lex_sort_indices_t(qb, ql)
+    KC1 = cfg.key_cap + 1
+    kb = torch.zeros((KC1, L), dtype=torch.uint8, device=dev)
+    kb[:n] = qb[order]
+    kl = torch.zeros((KC1,), dtype=torch.int32, device=dev)
+    kl[:n] = ql[order]
+    ktags = torch.zeros((KC1,), dtype=torch.uint8, device=dev)
+    ktags[:n] = K.fnv1a_tags(qb, ql)[order]
+    vv = torch.zeros((KC1,), dtype=cfg.val_dtype, device=dev)
+    vv[:n] = torch.as_tensor(np.asarray(vals)).to(dev, cfg.val_dtype)[order]
+    del qb, ql, order
+    arrays, err = _device_build_from_sorted(cfg, kb, kl, ktags, vv, n)
+    # _check_capacity already vetted n on the host; err re-validates it
+    if bool(err):  # pragma: no cover - unreachable after _check_capacity
+        raise RuntimeError("bulk_build(device=True): capacity exceeded")
+    return FBTree(cfg, arrays)
+
+
+# --------------------------------------------------------------------------
+# shard-aware build entry (DESIGN.md §7)
+# --------------------------------------------------------------------------
+
+def sharded_partition(ks: K.KeySet, vals, n_shards: int,
+                      presorted: bool = False):
+    """Range-partition a key set for a sharded build (host numpy, as the
+    reference's): one global lexicographic sort (``keys.lex_sort_indices``,
+    the order every build path uses; skipped with ``presorted=True`` for
+    inputs already in that order), then a balanced contiguous split into
+    ``n_shards`` runs. Returns ``(parts, split_keys)``: ``parts[s]`` is
+    ``(KeySet, vals)``, shard ``s``'s sorted slice, ready for its own
+    :func:`bulk_build`; ``split_keys[s]`` is ``(bytes_row uint8[L], len)``,
+    the run's minimum key (shard ``s`` owns ``[split_keys[s],
+    split_keys[s+1])``, shard 0 also everything below ``split_keys[0]``).
+
+    Raises ValueError unless ``1 <= n_shards <= n`` (an empty shard has no
+    minimum key to route by); shard sizes differ by at most one.
+    """
+    n = ks.n
+    if n_shards < 1:
+        raise ValueError(f"sharded_partition: n_shards must be >= 1, "
+                         f"got {n_shards}")
+    if n < n_shards:
+        raise ValueError(
+            f"sharded_partition needs at least one key per shard "
+            f"(n={n} < n_shards={n_shards}): an empty shard has no "
+            f"minimum key for the router — lower n_shards or seed "
+            f"sentinel keys")
+    if presorted:
+        sb, sl, sv = ks.bytes, ks.lens, np.asarray(vals)
+    else:
+        order = K.lex_sort_indices(ks)
+        sb = ks.bytes[order]
+        sl = ks.lens[order]
+        sv = np.asarray(vals)[order]
+    base, rem = divmod(n, n_shards)
+    parts = []
+    split_keys = []
+    start = 0
+    for s in range(n_shards):
+        k = base + (1 if s < rem else 0)
+        parts.append((K.KeySet(sb[start:start + k].copy(),
+                               sl[start:start + k].copy()),
+                      sv[start:start + k].copy()))
+        split_keys.append((sb[start].copy(), int(sl[start])))
+        start += k
+    return parts, split_keys

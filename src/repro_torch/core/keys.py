@@ -29,6 +29,7 @@ __all__ = [
     "pack_words",
     "pack_words_t",
     "lex_sort_indices",
+    "lex_sort_indices_t",
     "compare_padded",
     "fnv1a_tags",
 ]
@@ -116,20 +117,22 @@ def pack_words(kb: np.ndarray) -> np.ndarray:
 
 
 def pack_words_t(kb: torch.Tensor) -> torch.Tensor:
-    """torch twin of :func:`pack_words` (order-preserving int32 words).
+    """torch twin of :func:`pack_words` (order-preserving int32 words),
+    one :func:`_word_t` column per word."""
+    return torch.stack([_word_t(kb, i) for i in range((kb.shape[-1] + 3) // 4)],
+                       dim=-1)
 
-    Computed in int64, then biased by ``2**31`` into int32 range, so no
-    uint32 arithmetic is needed.
-    """
-    L = kb.shape[-1]
-    Lp = (L + 3) // 4 * 4
-    if Lp != L:
-        pad = torch.zeros(kb.shape[:-1] + (Lp - L,), dtype=torch.uint8,
-                          device=kb.device)
-        kb = torch.cat([kb, pad], dim=-1)
-    w = kb.reshape(kb.shape[:-1] + (Lp // 4, 4)).to(torch.int64)
-    words = (w[..., 0] << 24) | (w[..., 1] << 16) | (w[..., 2] << 8) | w[..., 3]
-    return (words - (1 << 31)).to(torch.int32)
+
+def _word_t(kb: torch.Tensor, i: int) -> torch.Tensor:
+    """Word ``i`` of :func:`pack_words_t` alone: bytes ``4i .. 4i+3``
+    big-endian (0 past the key width), computed in int64, then biased by
+    ``2**31`` into int32 range, so no uint32 arithmetic is needed."""
+    w = torch.zeros(kb.shape[:-1], dtype=torch.int64, device=kb.device)
+    for j in range(4):
+        w = w << 8
+        if 4 * i + j < kb.shape[-1]:
+            w = w | kb[..., 4 * i + j].to(torch.int64)
+    return (w - (1 << 31)).to(torch.int32)
 
 
 def lex_sort_indices(ks: KeySet) -> np.ndarray:
@@ -137,6 +140,29 @@ def lex_sort_indices(ks: KeySet) -> np.ndarray:
     words = pack_words(ks.bytes)  # [N, W]
     cols = [ks.lens] + [words[:, i] for i in range(words.shape[1] - 1, -1, -1)]
     return np.lexsort(cols)
+
+
+def lex_sort_indices_t(kb: torch.Tensor, kl: torch.Tensor,
+                       invalid: torch.Tensor = None) -> torch.Tensor:
+    """torch twin of the reference's ``lex_sort_indices_j``: the device
+    argsort of padded keys by (bytes asc, length tie-break), optionally
+    pushing rows flagged by the bool mask ``invalid`` past every valid row.
+    The single definition of the device key order: the build, the rebuild
+    and the insert path's dedupe sort through it.
+
+    torch has no ``lexsort``: stable sorts are chained from the least
+    significant column up (length, then the packed words from last to
+    first, then ``invalid`` as int32), so equal rows keep their input order
+    as ``jnp.lexsort``'s do. Each word column is packed only when its sort
+    runs, so no ``[N, L]`` int64 copy of the keys is made. Returns int64
+    ``[N]``.
+    """
+    perm = torch.argsort(kl, stable=True)
+    for i in range((kb.shape[-1] + 3) // 4 - 1, -1, -1):
+        perm = perm[torch.argsort(_word_t(kb, i)[perm], stable=True)]
+    if invalid is not None:
+        perm = perm[torch.argsort(invalid.to(torch.int32)[perm], stable=True)]
+    return perm
 
 
 def compare_padded(a_bytes: torch.Tensor, a_len: torch.Tensor,

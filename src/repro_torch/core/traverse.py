@@ -7,7 +7,11 @@ Three registries, as in the reference:
   ``fn(level, key_bytes, key_lens, node_ids, qb, ql, collect_stats=...)
   -> (child_ids, stats | None)``. Built-in: ``"torch"``, the plain torch
   oracle (``core.branch.branch_level``), in the place of the reference's
-  ``"jnp"``. The engine loops a level backend over the levels in either
+  ``"jnp"``; ``"cuda"``, the feature-comparison kernel per level
+  (``kernels.feature_branch``, one CUDA launch per level for a tree on the
+  card), in the place of the reference's ``"pallas"``; and the
+  factor-analysis baselines ``"binary"`` and ``"binary+prefix"``
+  (``core.baseline``). The engine loops a level backend over the levels in either
   layout: ``"tuple"`` walks the per-level tuple, ``"stacked"`` walks the
   padded ``[n_levels, C_max, ...]`` tensors one level slice at a time.
 * **Descent backends** resolve the whole root→leaf descent in one call:
@@ -29,6 +33,7 @@ flag is threaded into every backend, and with it off the returned
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -149,6 +154,16 @@ def backend_kind(name: str) -> str:
                    f"available: {available_backends()}")
 
 
+def _load_cuda_backend() -> BackendFn:
+    from ..kernels.feature_branch.ops import branch_level_cuda
+    return branch_level_cuda
+
+
+def _load_binary_backend(use_prefix: bool) -> BackendFn:
+    from .baseline import branch_level_binary
+    return functools.partial(branch_level_binary, use_prefix=use_prefix)
+
+
 def _load_fused_backend() -> DescentBackend:
     from ..kernels.fused_descent.ops import (fused_traverse,
                                              fused_traverse_probe)
@@ -161,6 +176,10 @@ def _load_fused_scan_backend() -> ScanBackend:
 
 
 register_backend("torch", branch_level)
+register_backend("cuda", loader=_load_cuda_backend)
+register_backend("binary", loader=functools.partial(_load_binary_backend, False))
+register_backend("binary+prefix",
+                 loader=functools.partial(_load_binary_backend, True))
 register_descent_backend("fused", loader=_load_fused_backend)
 register_scan_backend("fused", loader=_load_fused_scan_backend)
 

@@ -1,6 +1,7 @@
 """The CUDA kernels on a card: each held against its plain torch version
 bit for bit, launched once per call, and strict about its inputs; and the
-mutations on the card equal to the same mutations on the CPU.
+mutations, the device build and the rebuild on the card equal to the same
+calls on the CPU.
 
 Every test here is marked ``cuda`` and skips where no card is present (a
 CUDA kernel has no CPU mode). The file imports no JAX, so it runs on a
@@ -17,11 +18,15 @@ from repro_torch.core.keys import KeySet
 from repro_torch.core.traverse import TraversalEngine
 from repro_torch.kernels.fused_descent import cuda as kcuda
 from repro_torch.kernels.fused_descent import ops
+from repro_torch.kernels.feature_branch import cuda as k3cuda
+from repro_torch.kernels.feature_branch import ops as k3
 from repro_torch.kernels.fused_scan import ops as scan_ops
+from repro_torch.kernels.leaf_probe import cuda as k4cuda
+from repro_torch.kernels.leaf_probe import ops as k4
 
-from chip_smoke import (int_keys, kernel_vs_plain, scan_kernel_vs_plain,
-                        stale_parents, tree_diffs, tree_to, url_keys,
-                        ycsb_keys)
+from chip_smoke import (int_keys, k3_vs_plain, k4_vs_plain, kernel_vs_plain,
+                        scan_kernel_vs_plain, stale_parents, tree_diffs,
+                        tree_to, url_keys, ycsb_keys)
 
 GEN = {"ycsb": ycsb_keys, "url": url_keys, "int": int_keys}
 
@@ -184,3 +189,138 @@ def test_cuda_insert_matches_cpu(cuda_device, ns):
     for x, y in zip(rc, rh):
         for f in x._fields:
             assert torch.equal(getattr(x, f).cpu(), getattr(y, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,fs", ((64, 4), (128, 2), (128, 8)))
+def test_cuda_feature_branch_matches_plain(cuda_device, ns, fs):
+    """K3 on random rows: trivial nodes (knum 0 and 1), full nodes, both
+    prefix overrides, skewed bytes so that runs survive several rounds."""
+    rng = np.random.default_rng(ns + fs)
+    B = 3001
+    feats = np.sort(rng.integers(0, 6, size=(B, fs, ns), dtype=np.uint8), -1)
+    qfeat = rng.integers(0, 6, size=(B, fs), dtype=np.uint8)
+    knum = rng.integers(0, ns + 1, size=B, dtype=np.int32)
+    knum[:300] = rng.choice([0, 1, ns], size=300)
+    pcmp = rng.choice(np.array([-1, 0, 0, 1], np.int32), size=B)
+    args = [torch.from_numpy(x).cuda() for x in (feats, qfeat, knum, pcmp)]
+    n0 = k3.LAUNCHES
+    assert k3_vs_plain(*args) == 0
+    assert k3.LAUNCHES == n0 + 2                # stats on and off
+    out = k3.feature_branch(*args)
+    assert int(out[4].max()) > 1                # some runs survive a row
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns", (64, 128))
+def test_cuda_leaf_probe_matches_plain(cuda_device, ns):
+    rng = np.random.default_rng(ns)
+    B = 2049
+    tags = torch.from_numpy(rng.integers(0, 3, size=(B, ns),
+                                         dtype=np.uint8)).cuda()
+    occ = torch.from_numpy(rng.random((B, ns)) < 0.6).cuda()
+    occ[:5] = False
+    qtag = torch.from_numpy(rng.integers(0, 4, size=B, dtype=np.uint8)).cuda()
+    n0 = k4.LAUNCHES
+    assert k4_vs_plain(tags, occ, qtag) == 0
+    assert k4.LAUNCHES == n0 + 1
+    _, first, count = k4.leaf_probe(tags, occ, qtag)
+    assert (first[:5] == ns).all() and (count[:5] == 0).all()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,ns", (("ycsb", 64), ("url", 64), ("int", 128)))
+def test_cuda_level_engine_matches_torch(cuda_device, kind, ns):
+    """Engine "cuda" (K3 once a level) equals "torch" on leaf ids, paths and
+    counters in both layouts, stats on and off, over stale parents; its
+    lookups equal K1's; probe_cuda (K4 once) equals leaf.probe."""
+    from repro_torch.core.leaf import probe
+    tree, qb, ql = _tree_and_queries(kind, ns)
+    n_levels = tree.config.n_levels
+    for stats in (True, False):
+        for layout in ("tuple", "stacked"):
+            n0 = k3.LAUNCHES
+            got = TraversalEngine("cuda", layout, stats).traverse(tree, qb, ql)
+            assert k3.LAUNCHES == n0 + n_levels
+            want = TraversalEngine("torch", layout, stats).traverse(tree, qb,
+                                                                    ql)
+            assert torch.equal(got[0], want[0])
+            for p, q in zip(got[1], want[1]):
+                assert torch.equal(p, q)
+            for f in got[2]._fields:
+                assert torch.equal(getattr(got[2], f), getattr(want[2], f)), f
+    v_c, r_c = B.lookup_batch(tree, qb, ql, engine=TraversalEngine("cuda"))
+    v_f, r_f = B.lookup_batch(tree, qb, ql, engine=TraversalEngine("fused"))
+    assert torch.equal(v_c, v_f)
+    for f in r_c._fields:
+        assert torch.equal(getattr(r_c, f), getattr(r_f, f)), f
+    leaf = got[0]
+    n0 = k4.LAUNCHES
+    got_p = k4.probe_cuda(tree, leaf, qb, ql)
+    assert k4.LAUNCHES == n0 + 1
+    want_p = probe(tree, leaf, qb, ql)
+    for g, w in zip(got_p[:3], want_p[:3]):
+        assert torch.equal(g, w)
+    for f in got_p[3]._fields:
+        assert torch.equal(getattr(got_p[3], f), getattr(want_p[3], f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns", (64, 128))
+def test_cuda_device_build_and_rebuild_match_cpu(cuda_device, ns):
+    """bulk_build(device=True) and rebuild (after inserts that split and a
+    remove) on the card equal the same calls on the CPU, array for array,
+    and the rebuilt tree equals the card's host build of the live set."""
+    kb, kl = url_keys(4000, 13)
+    n = 3000
+    cfg = TreeConfig.plan(max_keys=8000, key_width=kb.shape[1], ns=ns)
+    vals = np.arange(n, dtype=np.int32)
+    trees = [bulk_build(cfg, KeySet(kb[:n], kl[:n]), vals, device=True,
+                        target=t) for t in ("cuda", "cpu")]
+    assert tree_diffs(*trees) == []
+    host = bulk_build(cfg, KeySet(kb[:n], kl[:n]), vals, target="cuda")
+    assert tree_diffs(trees[0], host) == []
+    out = []
+    for t in trees:
+        eng = TraversalEngine("fused")
+        t, rep, _ = B.insert_batch(t, kb[n:], kl[n:],
+                                   np.arange(n, 4000, dtype=np.int32),
+                                   engine=eng)
+        assert int(rep.splits) > 0
+        t, _ = B.remove_batch(t, kb[::7], kl[::7], engine=eng)
+        out.append(B.rebuild(t))
+    (card, crep), (cpu, hrep) = out
+    assert tree_diffs(card, cpu) == []
+    for f in crep._fields:
+        assert torch.equal(getattr(crep, f).cpu(), getattr(hrep, f)), f
+    live = np.setdiff1d(np.arange(4000), np.arange(0, 4000, 7))
+    fresh = bulk_build(cfg, KeySet(kb[live], kl[live]),
+                       live.astype(np.int32), target="cuda")
+    assert tree_diffs(card, fresh) == []
+    assert int(crep.reclaimed) == 4000 - live.size
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_level_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    feats = torch.zeros((8, 4, 64), dtype=torch.uint8, device="cuda")
+    qfeat = torch.zeros((8, 4), dtype=torch.uint8, device="cuda")
+    knum = torch.ones(8, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError, match="knum"):
+        k3cuda.launch(feats, qfeat, knum.long(), knum, collect_stats=True)
+    with pytest.raises(ValueError, match="ns"):
+        k3cuda.launch(feats[..., :32].contiguous(), qfeat, knum, knum,
+                      collect_stats=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        k3cuda.launch(feats.transpose(1, 2).contiguous().transpose(1, 2),
+                      qfeat, knum, knum, collect_stats=False)
+    tags = torch.zeros((8, 64), dtype=torch.uint8, device="cuda")
+    occ = torch.zeros((8, 64), dtype=torch.bool, device="cuda")
+    with pytest.raises(TypeError, match="occ"):
+        k4cuda.launch(tags, occ.to(torch.uint8), qfeat[:, 0].contiguous())
+    with pytest.raises(ValueError, match="on"):
+        k4cuda.launch(tags, occ.cpu(), qfeat[:, 0].contiguous())
+    empty = k4cuda.launch(tags[:0], occ[:0], qfeat[:0, 0].contiguous())
+    assert all(t.shape[0] == 0 for t in empty)

@@ -165,7 +165,11 @@ def test_backend_registry():
     assert backend_kind("fused") == "descent"
     d = get_descent_backend("fused")
     assert callable(d.traverse) and callable(d.traverse_probe)
-    assert set(available_backends()) == {"torch", "fused"}
+    for name in ("cuda", "binary", "binary+prefix"):
+        assert backend_kind(name) == "level"
+        assert callable(get_backend(name))
+    assert set(available_backends()) == {"torch", "cuda", "binary",
+                                         "binary+prefix", "fused"}
     with pytest.raises(KeyError):
         get_backend("no-such-backend")
     with pytest.raises(KeyError):

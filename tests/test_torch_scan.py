@@ -227,7 +227,9 @@ def test_scan_registry():
     assert callable(get_scan_backend("fused"))
     assert TraversalEngine("fused").scan_path() is p_ops.fused_range_scan
     assert TraversalEngine("torch").scan_path() is None
-    assert set(available_backends()) == {"torch", "fused"}
+    assert TraversalEngine("cuda").scan_path() is None
+    assert set(available_backends()) == {"torch", "cuda", "binary",
+                                         "binary+prefix", "fused"}
     with pytest.raises(KeyError):
         get_scan_backend("no-such-scan-backend")
     rt, pt, qb, ql = churned(*CASES[2])

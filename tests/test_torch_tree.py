@@ -103,14 +103,26 @@ def test_bulk_build_target_none_means_the_card():
 
 
 def test_bulk_build_device_pipeline_not_ported_and_caps_checked():
+    """The device pipeline, ported since this test was written, gives the
+    host build's tree; both paths check the caps on the host."""
     keys, width = make_dataset("rand-int", 60, seed=2)
     ks = KeySet(*RK.make_keyset(keys, width))
     vals = np.arange(len(keys), dtype=np.int32)
     cfg = PF.TreeConfig.plan(max_keys=120, key_width=width)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        PF.bulk_build(cfg, ks, vals, device=True, target="cpu")
+    dev = PF.bulk_build(cfg, ks, vals, device=True, target="cpu")
+    host = PF.bulk_build(cfg, ks, vals, target="cpu")
+
+    def flat(t):
+        a = t.arrays
+        return ([getattr(a, f) for f in a._fields
+                 if f not in ("levels", "stacked")]
+                + [x for lv in a.levels for x in lv] + list(a.stacked))
+
+    for u, v in zip(flat(dev), flat(host)):
+        assert u.dtype == v.dtype and torch.equal(u, v)
     small = PF.TreeConfig.plan(max_keys=30, key_width=width)
-    with pytest.raises(ValueError, match="key_cap"):
-        PF.bulk_build(small, ks, vals, target="cpu")
+    for device in (False, True):
+        with pytest.raises(ValueError, match="key_cap"):
+            PF.bulk_build(small, ks, vals, device=device, target="cpu")
     with pytest.raises(ValueError, match="level_caps"):
         PF.TreeConfig(key_width=8, n_levels=2, level_caps=(1,))
