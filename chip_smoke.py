@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's main paths on indexes of the size their users run: the
+Drives the port's main paths at the size their users run them: the
 batched point lookup (``core.batch_ops.lookup_batch`` with
 ``TraversalEngine("fused")``, one launch of the fused-descent kernel K1 per
 batch), YCSB workload E (``insert_batch`` then ``range_scan`` with the
@@ -9,7 +9,9 @@ batch), YCSB workload E (``insert_batch`` then ``range_scan`` with the
 the device build and ``rebuild``, and the paper's factor analysis (Fig.
 12(a)) through the per-level engine ``"cuda"`` (one launch of the
 feature-comparison kernel K3 per level) and ``probe_cuda`` (the hashtag
-leaf-filter kernel K4):
+leaf-filter kernel K4), and LLM serving through the FB+-tree prefix cache
+(``serving.Engine`` on yi-9b at full size; every long prefill layer is one
+launch of the flash-attention kernel K5):
 
 1. the card's name and power limit;
 2. build of every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
@@ -61,13 +63,33 @@ leaf-filter kernel K4):
     scan batch of the dirtied and of the clean tree; K3 at every level and
     K4 on the factor batch of the rebuilt tree; the plain versions;
     ``lookup_batch`` (engines ``"fused"`` and ``"cuda"``), ``range_scan``
-    and ``insert_batch`` end to end (host clock); each kernel's bound.
+    and ``insert_batch`` end to end (host clock); each kernel's bound;
+12. ``serve``: the port's ``Engine`` on ``get_config("yi-9b")`` (48 layers,
+    d_model 4096, GQA 32/4, vocab 64,000; bf16 weights from
+    ``lm.init_params`` under a generator seeded with ``--seed``) serving
+    16 requests of 3,072 tokens (``launch/serve.py::make_requests``: a
+    2,048-token system prompt from 4 families drawn zipf(1.5), then a
+    private tail), ``max_batch`` 4, 16-token blocks, 1,024 pages, 32 new
+    tokens each, ``tree_backend="fused"``. Every request must finish; K5
+    must launch 48 times per prefill, K1 once per match, insert probe,
+    insert round and eviction remove (counted by the obs counters), K2
+    once per eviction scan; evictions and hits must happen; the final tree
+    must pass ``fsck``; the cache's calls replayed on a CPU cache with the
+    ``"torch"`` engine must give the same answers, arrays, pool and stats;
+    KV loaded from cached pages must equal the request's own prefill
+    within the bf16 bound; two fresh engines must give ``reqs[0]`` the
+    same continuation; K5 must equal its plain version within
+    :func:`k5_tolerance` on the real q, k, v of layers 0 and 47 and on
+    ``K5_CASES``. It prints prefill ms per request, decode step ms, new
+    tokens/s, request latency p50/p99, peak device memory, and K5's time,
+    bound, plain time and ``scaled_dot_product_attention``'s time.
 
 Each phase prints one JSON line. The line before the last holds the
 kernels table; the last line is ``{"ok": true, "device": ...}``. The script
 exits non-zero, with no result, when there is no CUDA device, when the
 port's sources are not beside it, or when any check fails. Run:
-``python3 chip_smoke.py``.
+``python3 chip_smoke.py`` (a smaller serve phase:
+``--serve-requests 8 --serve-pages 512``).
 """
 from __future__ import annotations
 
@@ -1324,6 +1346,424 @@ def level_timing(tree, qb, ql, runs: int):
                        bound_by=k4_by)}
 
 
+# ------------------------------------------------------------------ serving
+
+BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate, data sheet
+SERVE_ARCH = "yi-9b"
+# The flash-attention sweep held against the plain version on the card (and
+# by tests/test_torch_cuda.py): ragged S and T, every mask kind, GQA n_rep in
+# {1, 4, 8}, kv_len < T and rows with no valid key. "sdpa" cases go through
+# ops.flash_sdpa ([B,S,H,hd], kv not repeated), "flat" cases through
+# ops.flash_attention ([BH,S,hd] with kv_len).
+K5_CASES = (
+    dict(api="sdpa", B=2, S=200, T=200, H=8, Hk=2, hd=32, mask=("causal", 0, 0)),
+    dict(api="sdpa", B=1, S=130, T=70, H=4, Hk=4, hd=16, mask=("full", 0, 0)),
+    dict(api="sdpa", B=1, S=96, T=160, H=8, Hk=1, hd=16, mask=("causal", 24, 0)),
+    dict(api="sdpa", B=1, S=257, T=257, H=32, Hk=4, hd=128,
+         mask=("causal", 0, 13)),
+    dict(api="sdpa", B=2, S=1000, T=1000, H=8, Hk=2, hd=64,
+         mask=("causal", 100, 0)),
+    dict(api="sdpa", B=1, S=3072, T=3072, H=32, Hk=4, hd=128,
+         mask=("causal", 0, 0)),
+    dict(api="flat", BH=2, S=256, T=256, hd=32, kv_len=96, mask=("causal", 40, 0)),
+    dict(api="flat", BH=4, S=300, T=333, hd=128, kv_len=200,
+         mask=("causal", 0, 0)),
+    dict(api="flat", BH=3, S=65, T=129, hd=24, kv_len=129, mask=("full", 0, 0)),
+)
+
+
+def attention_pairs(S: int, T: int, kv_len: int, causal: bool, window: int,
+                    prefix_len: int) -> int:
+    """The (query, key) pairs the mask keeps, for one head."""
+    kv_len = min(kv_len, T)
+    if not causal:
+        return S * kv_len
+    q = np.arange(S, dtype=np.int64)
+    hi = np.minimum(q + 1, kv_len)              # window keys are [lo, hi)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros_like(q)
+    p = min(prefix_len, kv_len)                 # prefix keys are [0, p)
+    inter = np.where(hi > lo, np.maximum(np.minimum(hi, p) - lo, 0), 0)
+    return int((np.maximum(hi - lo, 0) + p - inter).sum())
+
+
+def k5_tolerance(v: torch.Tensor) -> float:
+    """The bound K5 is held to against its plain version. float32: 1e-4
+    times max(1, max|v|) (a few float32 ulps of the output; both sum in
+    float32 in other orders). bf16: 2^-6 times max|v|. Each output is a
+    weighted mean of v. The plain version rounds the normalized weights to
+    bf16 (relative error <= 2^-9 each, so <= 2^-9 max|v| on the sum); the
+    kernel rounds the unnormalized weights (the same 2^-9) and divides by
+    a sum of unrounded ones (another 2^-9); both round the output (2^-9 of
+    |out| <= max|v|): at most 5 * 2^-9 < 2^-6 of max|v| apart."""
+    vmax = float(v.abs().max()) if v.numel() else 0.0
+    if v.dtype == torch.float32:
+        return 1e-4 * max(1.0, vmax)
+    return 2.0 ** -6 * vmax
+
+
+def k5_vs_plain(q, k, v, mask, n_rep: int, scale: float):
+    """K5 (``ops.flash_sdpa`` on the card) against its plain version on
+    the same device and inputs. Returns (max_abs_err, tolerance)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_sdpa_ref
+    got = ops.flash_sdpa(q, k, v, mask, n_rep, scale)
+    want = flash_sdpa_ref(q, k, v, mask, n_rep, scale)
+    _sync(q.device)
+    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    return err, k5_tolerance(v)
+
+
+def k5_sweep(device, dtype, seed: int):
+    """Every case of ``K5_CASES`` in ``dtype``: K5 against its plain
+    version, and rows with no valid key exactly 0. Returns the worst error,
+    the worst error / tolerance, and the failures."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models.attention import MaskSpec
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=device).to(dtype)
+    worst = ratio = 0.0
+    bad = []
+    for c in K5_CASES:
+        kind, window, pre = c["mask"]
+        if c["api"] == "sdpa":
+            q = rnd(c["B"], c["S"], c["H"], c["hd"])
+            k = rnd(c["B"], c["T"], c["Hk"], c["hd"])
+            v = rnd(c["B"], c["T"], c["Hk"], c["hd"])
+            err, tol = k5_vs_plain(q, k, v, MaskSpec(*c["mask"]),
+                                   c["H"] // c["Hk"], c["hd"] ** -0.5)
+        else:
+            q = rnd(c["BH"], c["S"], c["hd"])
+            k = rnd(c["BH"], c["T"], c["hd"])
+            v = rnd(c["BH"], c["T"], c["hd"])
+            kw = dict(scale=c["hd"] ** -0.5, kv_len=c["kv_len"],
+                      causal=kind == "causal", window=window, prefix_len=pre)
+            got = ops.flash_attention(q, k, v, **kw)
+            want = flash_attention_ref(q, k, v, **kw)
+            err = float((got.float() - want.float()).abs().max())
+            tol = k5_tolerance(v[:, :c["kv_len"]])
+            if window:   # rows whose window lies wholly past kv_len
+                empty = torch.arange(c["S"], device=device) - window + 1 \
+                    >= c["kv_len"]
+                if not bool(empty.any()) or bool(got[:, empty].ne(0).any()):
+                    bad.append(f"{c}: rows with no valid key are not 0")
+        worst = max(worst, err)
+        ratio = max(ratio, err / tol)
+        if not err <= tol:
+            bad.append(f"{c}: err {err} > tol {tol}")
+    return dict(max_abs_err=worst, max_err_over_tol=ratio,
+                cases=len(K5_CASES), failures=bad)
+
+
+def k5_bound(B, S, T, H, Hk, hd, hv, mask, elem_bytes=2):
+    """Least time for one K5 call: the larger of its operations (2·hd for
+    q·k and 2·hv for p·v per kept pair, per head) over the bf16 tensor-core
+    rate and its bytes (q, k, v read once, out written once) over HBM."""
+    kind, window, pre = mask
+    pairs = attention_pairs(S, T, T, kind == "causal", window, pre)
+    flops = 2 * (hd + hv) * pairs * B * H
+    nbytes = elem_bytes * (B * S * H * (hd + hv) + B * T * Hk * (hd + hv))
+    t_ops = flops / BF16_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), flops, nbytes
+
+
+def k5_timing(q, k, v, n_rep: int, runs: int):
+    """K5 at the served shape (causal): CUDA-event median of the kernel,
+    of its plain version and of one ``scaled_dot_product_attention`` call
+    on the same inputs (kv repeated, ``is_causal=True``; timed here as a
+    yardstick, never called by the port), and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_sdpa_ref
+    from repro_torch.models.attention import CAUSAL
+    B, S, H, hd = q.shape
+    T, Hk, hv = k.shape[1], k.shape[2], v.shape[-1]
+    scale = hd ** -0.5
+    kern = lambda: ops.flash_sdpa(q, k, v, CAUSAL, n_rep, scale)
+    plain = lambda: flash_sdpa_ref(q, k, v, CAUSAL, n_rep, scale)
+    qh = q.transpose(1, 2)
+    kh = k.repeat_interleave(n_rep, dim=2).transpose(1, 2)
+    vh = v.repeat_interleave(n_rep, dim=2).transpose(1, 2)
+    lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                 scale=scale)
+    for _ in range(2):
+        kern(), plain(), lib()
+    n0 = ops.LAUNCHES
+    k_ms, k_all = _event_ms(kern, runs)
+    timed_launches = ops.LAUNCHES - n0
+    p_ms, _ = _event_ms(plain, max(3, runs // 5))
+    l_ms, _ = _event_ms(lib, runs)
+    lib_err = float((lib().transpose(1, 2).reshape(B, S, H * hv).float()
+                     - kern().float()).abs().max())
+    b_ms, b_by, flops, nbytes = k5_bound(B, S, T, H, Hk, hd, hv,
+                                         ("causal", 0, 0), q.element_size())
+    out = dict(ms=k_ms, min_ms=min(k_all), max_ms=max(k_all), runs=runs,
+               timed_launches=timed_launches, plain_ms=p_ms, library_ms=l_ms,
+               library_vs_kernel_max_abs_err=lib_err, bound_ms=b_ms,
+               bound_by=b_by, flops=flops, bytes=nbytes,
+               tflops_per_s=flops / k_ms / 1e9, bound_share=b_ms / k_ms,
+               shape=dict(B=B, S=S, T=T, H=H, Hk=Hk, hd=hd, dtype=str(q.dtype)))
+    emit({"metric": "k5_ms", **out})
+    return out
+
+
+def capture_qkv(params, cfg, toks, layers):
+    """q, k, v of ``layers`` in one prefill of ``toks`` [1, S] (the inputs
+    K5 gets there), by running the blocks one at a time."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import blocks as BLK
+    from repro_torch.models import lm
+    from repro_torch.models.layers import apply_norm
+    x = params["embed"][toks.long()]
+    B, S = toks.shape
+    pos = torch.arange(S, dtype=torch.int32, device=toks.device).expand(B, S)
+    mask = A.MaskSpec("causal", cfg.window, 0)
+    out = {}
+    for i, (kind, n) in enumerate(BLK.block_kinds(cfg)):
+        for j in range(n):
+            pl = lm.layer_params(params[f"seg{i}"], j)
+            if j in layers:
+                h = apply_norm(x, pl["ln1"], cfg.norm, cfg.norm_eps)
+                out[j] = A._qkv(pl["attn"], cfg, h, pos)
+            x, _ = BLK.block_forward(pl, cfg, kind, x, pos, mask)
+    return out
+
+
+def _pool_diffs(pa, pb):
+    out = [f for f in ("used", "refs", "last_access", "hits")
+           if not np.array_equal(getattr(pa, f), getattr(pb, f))]
+    return out + (["clock"] if pa.clock != pb.clock else [])
+
+
+def _serve_engine(cfg, params, scfg, reqs, dev):
+    """Serve ``reqs`` with a fresh ``Engine``, recording every call the
+    engine makes to its prefix cache, checking each load of cached KV
+    against the request's own prefill, timing each prefill and decode
+    step, and counting the kernel launches of the run. Returns
+    ``(results, fails)``; the engine is freed on return."""
+    from repro_torch import obs
+    from repro_torch.core import fsck
+    from repro_torch.core.traverse import TraversalEngine
+    from repro_torch.kernels.flash_attention import ops as k5
+    from repro_torch.kernels.fused_descent import ops as k1
+    from repro_torch.kernels.fused_scan import ops as k2
+    from repro_torch.models.attention import FLASH_THRESH
+    from repro_torch.serving import Engine, PrefixCache
+    on_card = dev.type == "cuda"
+    bt = scfg.block_tokens
+    eng = Engine(cfg, params, scfg)
+    pc = eng.prefix
+    log, kv_errs, prefill_ms, step_ms = [], [], [], []
+    match, publish = pc.match, pc.publish
+    load, prefill, step = eng._load_blocks, eng._prefill, eng.step
+
+    def rec_match(prompts):
+        out = match(prompts)
+        log.append(("match", [np.array(p) for p in prompts], out))
+        return out
+
+    def rec_publish(toks, n_known):
+        out = publish(toks, n_known)
+        log.append(("publish", np.array(toks), n_known,
+                    None if out is None else out.copy()))
+        return out
+
+    def checked_load(slot, pages):
+        # the slot holds the request's own prefill KV; the pages, written
+        # by an earlier request with the same token prefix, must give the
+        # same KV for those positions
+        n = len(pages) * bt
+        own = (eng.cache.k[:, slot, :n].clone(),
+               eng.cache.v[:, slot, :n].clone())
+        load(slot, pages)
+        for o, got in zip(own, (eng.cache.k, eng.cache.v)):
+            err = float((got[:, slot, :n].float() - o.float()).abs().max())
+            kv_errs.append((err, 2.0 ** -6 * float(o.float().abs().max())))
+
+    def timed(fn, times):
+        def run(*a):
+            _sync(dev)
+            t = time.perf_counter()
+            out = fn(*a)
+            _sync(dev)
+            times.append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    pc.match, pc.publish = rec_match, rec_publish
+    eng._load_blocks = checked_load
+    eng._prefill = timed(prefill, prefill_ms)
+    eng.step = timed(step, step_ms)
+
+    obs.enable()
+    obs.reset()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    k1.LAUNCHES = k2.LAUNCHES = k5.LAUNCHES = 0     # counts from this path only
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    _sync(dev)
+    run_s = time.perf_counter() - t0
+    launches = dict(k1=k1.LAUNCHES, k2=k2.LAUNCHES, k5=k5.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    value = lambda name, **kw: getattr(obs.get_metric(name, **kw), "value", 0)
+    ops = {op: value("op.calls", op=op)
+           for op in ("lookup", "insert", "remove", "scan")}
+    ins_rounds = value("op.rounds", op="insert")
+    lat = obs.get_metric("serve.request_latency_s")
+    obs.disable()
+
+    fails = []
+    new_tokens = scfg.max_new_tokens
+    if not all(r.done and len(r.out) == new_tokens for r in done):
+        fails.append("a request is not done with max_new_tokens tokens")
+    n_match = sum(1 for e in log if e[0] == "match")
+    plen = max(len(r) for r in reqs)
+    want = dict(
+        # one K1 descent per match, per insert's probe and insert round,
+        # per eviction's remove; one K2 scan per eviction; one K5 launch per
+        # layer of every prefill above FLASH_THRESH
+        k1=n_match + ops["insert"] + ins_rounds + ops["remove"],
+        k2=ops["scan"],
+        k5=cfg.n_layers * len(prefill_ms) if plen * plen > FLASH_THRESH
+        else 0)
+    if ops["lookup"] != n_match:
+        fails.append(f"{ops['lookup']} lookups for {n_match} matches")
+    if on_card and launches != want:
+        fails.append(f"launches {launches}, expected {want}")
+    stats = dict(pc.stats)
+    if not (stats["evicts"] > 0 and stats["hits"] > 0):
+        fails.append(f"no eviction or no hit: {stats}")
+    rep = fsck.check(pc.tree)
+    if not rep.ok:
+        fails.append(f"fsck: {rep.violations[:3]}")
+    # the same calls on a CPU cache with the plain "torch" tree engine
+    t0 = time.perf_counter()
+    cpu = PrefixCache(scfg.n_pages, bt,
+                      engine=TraversalEngine("torch", collect_stats=False),
+                      target="cpu")
+    for e in log:
+        if e[0] == "match":
+            same = cpu.match(e[1]) == e[2]
+        else:
+            got = cpu.publish(e[1], e[2])
+            same = (got is None) == (e[3] is None) and (
+                got is None or np.array_equal(got, e[3]))
+        if not same:
+            fails.append(f"replay: a {e[0]} answers otherwise on the CPU")
+            break
+    replay_s = time.perf_counter() - t0
+    diffs = tree_diffs(pc.tree, cpu.tree) + _pool_diffs(pc.pool, cpu.pool)
+    if diffs or cpu.stats != stats:
+        fails.append(f"card cache != CPU replay: {diffs[:5]}, "
+                     f"{stats} vs {cpu.stats}")
+    kv_err = max((e for e, _ in kv_errs), default=0.0)
+    if not kv_errs or any(not e <= tol for e, tol in kv_errs):
+        fails.append(f"cached KV off the request's own prefill "
+                     f"({len(kv_errs) // 2} loads, max err {kv_err})")
+    res = dict(run_s=run_s, new_tokens=sum(len(r.out) for r in done),
+               prefill_ms=prefill_ms, step_ms=step_ms, launches=launches,
+               expected_launches=want, op_calls=ops, insert_rounds=ins_rounds,
+               cache_stats=stats, hit_rate=pc.hit_rate(),
+               hit_blocks=[r.cached_blocks for r in done], fsck_ok=rep.ok,
+               replay_equal=not diffs and cpu.stats == stats,
+               replay_s=replay_s, kv_loads_checked=len(kv_errs) // 2,
+               kv_load_max_abs_err=kv_err, peak_bytes=peak,
+               latency_p50_s=lat.p50 if lat is not None else None,
+               latency_p99_s=lat.p99 if lat is not None else None)
+    return res, fails
+
+
+def run_serve(*, seed, device, smoke=False, n_req=16, plen=3072,
+              shared=2048, new_tokens=32, n_pages=1024, runs=25):
+    """The ``serve`` phase: the port's ``Engine`` serving ``n_req``
+    requests of yi-9b (``get_config("yi-9b")``, full width and depth, bf16
+    weights from ``lm.init_params`` under a generator seeded with
+    ``seed``; ``smoke`` takes the SMOKE config, for a rehearsal) through
+    the FB+-tree prefix cache with the ``"fused"`` tree engine; the checks
+    of :func:`_serve_engine`, two fresh engines serving ``reqs[0]`` alike,
+    K5 against its plain version on the real q, k, v of the first and last
+    layer and on ``K5_CASES``, and K5's timing at the served shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import lm
+    from repro_torch.models.attention import CAUSAL
+    from repro_torch.serving import Engine, ServeConfig
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    cfg = get_config(SERVE_ARCH, smoke=smoke)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    reqs = make_requests(n_req, cfg.vocab, shared, plen, seed=seed)
+    scfg = ServeConfig(max_batch=4, s_max=plen + new_tokens + 8,
+                       block_tokens=16, n_pages=n_pages,
+                       max_new_tokens=new_tokens, tree_backend="fused")
+    res, fails = _serve_engine(cfg, params, scfg, reqs, dev)
+    if on_card:
+        torch.cuda.empty_cache()
+    # determinism: two fresh engines serving reqs[0] alone
+    solo = [Engine(cfg, params, scfg).run([reqs[0]])[0].out for _ in range(2)]
+    if solo[0] != solo[1]:
+        fails.append(f"fresh engines disagree on reqs[0]: {solo}")
+    # K5 on the real q, k, v of the first and the last layer of one prefill
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    real, sweep, timing = {}, {}, None
+    with torch.inference_mode():
+        qkv = capture_qkv(params, cfg, torch.as_tensor(reqs[0], device=dev)
+                          [None], (0, cfg.n_layers - 1))
+        for layer, (q, k, v) in qkv.items():
+            err, tol = k5_vs_plain(q, k, v, CAUSAL, n_rep, cfg.hd ** -0.5)
+            real[layer] = dict(max_abs_err=err, tol=tol)
+            if not err <= tol:
+                fails.append(f"K5 layer {layer}: err {err} > tol {tol}")
+        if on_card:    # no kernel runs on the CPU: nothing to sweep
+            for dt in (torch.float32, torch.bfloat16):
+                s = k5_sweep(dev, dt, seed)
+                fails += [f"K5 sweep {dt}: {b}" for b in s.pop("failures")]
+                sweep[str(dt)] = s
+            timing = k5_timing(*qkv[0], n_rep, runs)
+    del qkv
+    n_params = sum(t.numel() for t in _leaves(params))
+    pm, sm = res.pop("prefill_ms"), res.pop("step_ms")
+    out = {"phase": "serve", "arch": cfg.name, "params": n_params,
+           "init_s": init_s, "requests": n_req, "prompt_len": plen,
+           "shared_prefix": shared, "serve_config": {
+               k: v for k, v in dataclasses.asdict(scfg).items()
+               if k != "faults"},
+           "prefills": len(pm), "decode_steps": len(sm), **res,
+           "solo_equal": solo[0] == solo[1], "k5_real": real,
+           "k5_sweep": sweep, "fails": fails}
+    emit(out)
+    emit({"metric": "serve_prefill_ms_per_request",
+          "value": statistics.median(pm), "all": pm,
+          "clock": "host, synchronized"})
+    emit({"metric": "serve_decode_step_ms", "value": statistics.median(sm),
+          "min": min(sm), "max": max(sm), "steps": len(sm),
+          "clock": "host, synchronized"})
+    emit({"metric": "serve_new_tokens_per_s",
+          "value": res["new_tokens"] / res["run_s"],
+          "new_tokens": res["new_tokens"], "run_s": res["run_s"]})
+    emit({"metric": "serve_request_latency_s", "p50": res["latency_p50_s"],
+          "p99": res["latency_p99_s"],
+          "source": "obs histogram serve.request_latency_s (log2 buckets)"})
+    emit({"metric": "serve_peak_device_bytes", "value": res["peak_bytes"]})
+    if fails:
+        raise AssertionError("serve: " + "; ".join(fails))
+    return out, timing
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 # -------------------------------------------------------------------- main
 
 def _smi() -> str:
@@ -1342,6 +1782,8 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=65_536)
     p.add_argument("--runs", type=int, default=25)
     p.add_argument("--e-rounds", type=int, default=16)
+    p.add_argument("--serve-requests", type=int, default=16)
+    p.add_argument("--serve-pages", type=int, default=1024)
     args = p.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1416,6 +1858,12 @@ def main(argv=None) -> int:
     st = scan_timing(clean, dirty, sqb, sql, 50, args.runs)
     lt = level_timing(rebuilt, fqb, fql, args.runs)
     factor = [f for f, _ in f_outs]
+    del tree, clean, dirty, rebuilt, qb, ql, sqb, sql, fqb, fql
+    torch.cuda.empty_cache()
+    s_out, k5t = run_serve(seed=args.seed, device=dev,
+                           n_req=args.serve_requests,
+                           n_pages=args.serve_pages, runs=args.runs)
+    k5_errs = [r["max_abs_err"] for r in s_out["k5_real"].values()]
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "fused_descent", "route": "cuda",
@@ -1449,7 +1897,20 @@ def main(argv=None) -> int:
         "max_abs_err": max(f["k4_vs_plain_max_abs_err"] for f in factor),
         "ms": lt["k4"]["ms"], "plain_ms": lt["k4"]["plain_ms"],
         "bound_ms": lt["k4"]["bound_ms"], "bound_by": lt["k4"]["bound_by"],
-        "library_ms": None}]})
+        "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
+        "launches": s_out["launches"]["k5"],
+        "max_abs_err": max(k5_errs),
+        "tolerance": min(r["tol"] for r in s_out["k5_real"].values()),
+        "ms": k5t["ms"], "plain_ms": k5t["plain_ms"],
+        "bound_ms": k5t["bound_ms"], "bound_by": k5t["bound_by"],
+        "library_ms": k5t["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention "
+                   "(kv repeated, is_causal=True)",
+        "per": "one prefill layer: " + ", ".join(
+            f"{k}={v}" for k, v in k5t["shape"].items())}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

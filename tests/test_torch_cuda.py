@@ -1,7 +1,8 @@
 """The CUDA kernels on a card: each held against its plain torch version
-bit for bit, launched once per call, and strict about its inputs; and the
-mutations, the device build and the rebuild on the card equal to the same
-calls on the CPU.
+(bit for bit for the tree kernels K1-K4, within the stated bound for the
+flash-attention forward K5), launched once per call, and strict about its
+inputs; and the mutations, the device build and the rebuild on the card
+equal to the same calls on the CPU.
 
 Every test here is marked ``cuda`` and skips where no card is present (a
 CUDA kernel has no CPU mode). The file imports no JAX, so it runs on a
@@ -24,7 +25,8 @@ from repro_torch.kernels.fused_scan import ops as scan_ops
 from repro_torch.kernels.leaf_probe import cuda as k4cuda
 from repro_torch.kernels.leaf_probe import ops as k4
 
-from chip_smoke import (int_keys, k3_vs_plain, k4_vs_plain, kernel_vs_plain,
+from chip_smoke import (K5_CASES, int_keys, k3_vs_plain, k4_vs_plain,
+                        k5_sweep, k5_vs_plain, kernel_vs_plain,
                         scan_kernel_vs_plain, stale_parents, tree_diffs,
                         tree_to, url_keys, ycsb_keys)
 
@@ -324,3 +326,60 @@ def test_cuda_level_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         k4cuda.launch(tags, occ.cpu(), qfeat[:, 0].contiguous())
     empty = k4cuda.launch(tags[:0], occ[:0], qfeat[:0, 0].contiguous())
     assert all(t.shape[0] == 0 for t in empty)
+
+
+# ------------------------------------------------------------ K5 (flash)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_cuda_flash_attention_matches_plain(cuda_device, dtype):
+    """K5 against its plain version over ``chip_smoke.K5_CASES``: ragged S
+    and T, every mask kind, GQA n_rep in {1, 4, 8}, kv_len < T, rows with
+    no valid key (exactly 0); tolerance ``chip_smoke.k5_tolerance``
+    (float32: 1e-4 of max(1, max|v|); bf16: 2^-6 of max|v|)."""
+    from repro_torch.kernels.flash_attention import ops as k5
+    n0 = k5.LAUNCHES
+    out = k5_sweep(cuda_device, dtype, seed=5)
+    assert out["failures"] == [], out["failures"]
+    assert k5.LAUNCHES == n0 + len(K5_CASES)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_sdpa_above_flash_thresh_is_one_k5_launch(cuda_device):
+    from repro_torch.kernels.flash_attention import ops as k5
+    from repro_torch.models import attention as A
+    g = torch.Generator(device="cuda").manual_seed(0)
+    S = 2100
+    q = torch.randn((1, S, 8, 64), generator=g, device="cuda").bfloat16()
+    k = torch.randn((1, S, 2, 64), generator=g, device="cuda").bfloat16()
+    v = torch.randn((1, S, 2, 64), generator=g, device="cuda").bfloat16()
+    n0 = k5.LAUNCHES
+    out = A.sdpa(q, k, v, A.CAUSAL, 4)
+    assert k5.LAUNCHES == n0 + 1 and out.shape == (1, S, 8 * 64)
+    err, tol = k5_vs_plain(q, k, v, A.CAUSAL, 4, 64 ** -0.5)
+    assert err <= tol
+    small = A.sdpa(q[:, :64], k[:, :64], v[:, :64], A.CAUSAL, 4)
+    assert k5.LAUNCHES == n0 + 2 and small.shape == (1, 64, 8 * 64)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take(
+        cuda_device):
+    from repro_torch.kernels.flash_attention import ops as k5
+    from repro_torch.models.attention import CAUSAL
+    q = torch.zeros((1, 8, 4, 16), device="cuda")
+    kv = torch.zeros((1, 8, 2, 16), device="cuda")
+    with pytest.raises(TypeError):
+        k5.flash_sdpa(q.half(), kv.half(), kv.half(), CAUSAL, 2, 0.25)
+    with pytest.raises(TypeError):
+        k5.flash_sdpa(q, kv.bfloat16(), kv, CAUSAL, 2, 0.25)
+    with pytest.raises(ValueError):
+        k5.flash_sdpa(q, kv, kv, CAUSAL, 4, 0.25)      # 4 heads != 2 x 4
+    with pytest.raises(ValueError):
+        k5.flash_sdpa(q, kv, kv.cpu(), CAUSAL, 2, 0.25)
+    big = torch.zeros((1, 8, 2, 256), device="cuda")
+    with pytest.raises(ValueError):
+        k5.flash_sdpa(big, big, big, CAUSAL, 1, 0.25)  # head dim > 128
+    with pytest.raises(ValueError):
+        k5.flash_attention(q[0], kv[0], kv[0], scale=0.25, kv_len=9)

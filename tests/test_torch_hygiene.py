@@ -24,6 +24,12 @@ def _port_modules():
 def test_importing_every_port_module_loads_no_jax_or_reference():
     mods = _port_modules()
     assert "repro_torch.kernels.fused_descent.cuda" in mods
+    # the walk reaches the serving slice's subpackages too
+    for m in ("repro_torch.kernels.flash_attention.cuda",
+              "repro_torch.serving.engine", "repro_torch.models.lm",
+              "repro_torch.configs.yi_9b", "repro_torch.launch.serve",
+              "repro_torch.core.lifecycle"):
+        assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
