@@ -79,17 +79,18 @@ launch of the flash-attention kernel K5):
     KV loaded from cached pages must equal the request's own prefill
     within the bf16 bound; two fresh engines must give ``reqs[0]`` the
     same continuation; K5 must equal its plain version within
-    :func:`k5_tolerance` on the real q, k, v of layers 0 and 47 and on
-    ``K5_CASES``. It prints prefill ms per request, decode step ms, new
-    tokens/s, request latency p50/p99, peak device memory, and K5's time,
-    bound, plain time and ``scaled_dot_product_attention``'s time.
+    :func:`k5_tolerance` (per element, scaled to the output) on the real
+    q, k, v of layers 0 and 47 and on ``K5_CASES``. It prints prefill ms
+    per request, decode step ms, new tokens/s, request latency p50/p99,
+    peak device memory, and K5's time, bound, plain time and
+    ``scaled_dot_product_attention``'s time.
 
 Each phase prints one JSON line. The line before the last holds the
 kernels table; the last line is ``{"ok": true, "device": ...}``. The script
 exits non-zero, with no result, when there is no CUDA device, when the
 port's sources are not beside it, or when any check fails. Run:
-``python3 chip_smoke.py`` (a smaller serve phase:
-``--serve-requests 8 --serve-pages 512``).
+``python3 chip_smoke.py``; ``rehearse_serve()`` runs the serve phase's
+checks on the CPU at SMOKE size.
 """
 from __future__ import annotations
 
@@ -1350,11 +1351,20 @@ def level_timing(tree, qb, ql, runs: int):
 
 BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate, data sheet
 SERVE_ARCH = "yi-9b"
+# The served mix: 16 requests of a 2,048-token system prompt (4 families,
+# zipf 1.5) and a 1,024-token private tail, 32 new tokens each, over 1,024
+# pages of 16 tokens, fewer than the ~1,400-1,540 distinct blocks the mix
+# needs, so the cache evicts. The rehearsal keeps that overflow at SMOKE
+# size: at most 4 x 4 + 16 x 2 = 48 blocks over 32 pages.
+SERVE_MIX = dict(smoke=False, n_req=16, plen=3072, shared=2048,
+                 new_tokens=32, n_pages=1024)
+REHEARSAL_MIX = dict(smoke=True, n_req=16, plen=96, shared=64, new_tokens=8,
+                     n_pages=32)
 # The flash-attention sweep held against the plain version on the card (and
 # by tests/test_torch_cuda.py): ragged S and T, every mask kind, GQA n_rep in
 # {1, 4, 8}, kv_len < T and rows with no valid key. "sdpa" cases go through
-# ops.flash_sdpa ([B,S,H,hd], kv not repeated), "flat" cases through
-# ops.flash_attention ([BH,S,hd] with kv_len).
+# ops.flash_sdpa ([B,S,H,hd], kv not repeated), "flat" cases straight to
+# cuda.launch ([BH,S,hd] with kv_len < T, which flash_sdpa never asks for).
 K5_CASES = (
     dict(api="sdpa", B=2, S=200, T=200, H=8, Hk=2, hd=32, mask=("causal", 0, 0)),
     dict(api="sdpa", B=1, S=130, T=70, H=4, Hk=4, hd=16, mask=("full", 0, 0)),
@@ -1386,38 +1396,90 @@ def attention_pairs(S: int, T: int, kv_len: int, causal: bool, window: int,
     return int((np.maximum(hi - lo, 0) + p - inter).sum())
 
 
-def k5_tolerance(v: torch.Tensor) -> float:
-    """The bound K5 is held to against its plain version. float32: 1e-4
-    times max(1, max|v|) (a few float32 ulps of the output; both sum in
-    float32 in other orders). bf16: 2^-6 times max|v|. Each output is a
-    weighted mean of v. The plain version rounds the normalized weights to
-    bf16 (relative error <= 2^-9 each, so <= 2^-9 max|v| on the sum); the
-    kernel rounds the unnormalized weights (the same 2^-9) and divides by
-    a sum of unrounded ones (another 2^-9); both round the output (2^-9 of
-    |out| <= max|v|): at most 5 * 2^-9 < 2^-6 of max|v| apart."""
-    vmax = float(v.abs().max()) if v.numel() else 0.0
-    if v.dtype == torch.float32:
-        return 1e-4 * max(1.0, vmax)
-    return 2.0 ** -6 * vmax
+K5_BOUND = ("float32: 1e-4 max(1, max|v|); bf16: 2^-6 |want| + 2^-5 R + "
+            "kv_len 2^-24 A per element, A = sum w|v|, R = sqrt(sum w^2 v^2)")
 
 
-def k5_vs_plain(q, k, v, mask, n_rep: int, scale: float):
+def k5_tolerance(q, k, v, want, *, scale, kv_len, causal, window=0,
+                 prefix_len=0):
+    """The bound K5 is held to against its plain version, per output
+    element: q [BH,S,hd], k/v [BH,T,hv], ``want`` [BH,S,hv] the plain
+    version's output. A row with no valid key gets 0: it must be 0.
+
+    float32: 1e-4 times max(1, max|v|), a few float32 ulps of the output
+    (both sum in float32, in other orders).
+
+    bf16: 2^-6·|want| + 2^-5·R + kv_len·2^-24·A, with w the row's exact
+    float32 softmax weights, A = Σ_j w_j·|v_j| and R = sqrt(Σ_j w_j²·v_j²):
+    - 2^-6·|want|: both round their output to bf16, each within one ulp,
+      and an ulp is at most 2^-7 of the value;
+    - 2^-5·R: the kernel rounds each unnormalized weight to bf16, the plain
+      version each normalized one, each within 2^-8 of the weight. The two
+      roundings of a key's weight differ, key by key, with no common sign,
+      so the output moves by Σ_j w_j·v_j·(δ_j - ε_j), whose standard
+      deviation is at most 2^-8·sqrt(2/3)·R: the bound is ten of them;
+    - kv_len·2^-24·A: float32 sums of up to kv_len terms in other orders.
+    On long causal rows R is about |out|, far below max|v|: a dropped kv
+    tile or a wrong correction factor moves the output by many R."""
+    from repro_torch.kernels.flash_attention.ref import NEG, key_mask
+    vk = v[:, :kv_len].float()
+    if q.dtype == torch.float32:
+        vmax = float(vk.abs().max()) if vk.numel() else 0.0
+        return torch.full(want.shape, 1e-4 * max(1.0, vmax),
+                          device=want.device)
+    m = key_mask(q.shape[1], kv_len, causal, window, prefix_len, q.device)
+    live = m.any(-1)[:, None]
+    tol = torch.empty(want.shape, device=want.device)
+    for i in range(0, q.shape[0], 8):      # 8 heads' [S, kv_len] at a time
+        s = torch.einsum("bsh,bth->bst", q[i:i + 8].float(),
+                         k[i:i + 8, :kv_len].float()) * scale
+        w = torch.softmax(torch.where(m, s, NEG), dim=-1) * live
+        vi = vk[i:i + 8]
+        tol[i:i + 8] = (2.0 ** -6 * want[i:i + 8].float().abs()
+                        + 2.0 ** -5 * torch.sqrt((w * w) @ (vi * vi))
+                        + kv_len * 2.0 ** -24 * (w @ vi.abs()))
+    return tol
+
+
+def _err_over_tol(got, want, tol) -> dict:
+    err = (got.float() - want.float()).abs()
+    ratio = torch.where(err == 0, 0.0, err / tol)   # a zero bound broken: inf
+    return dict(max_abs_err=float(err.max()) if err.numel() else 0.0,
+                max_err_over_tol=float(ratio.max()) if err.numel() else 0.0,
+                max_abs_want=float(want.float().abs().max())
+                if err.numel() else 0.0)
+
+
+def k5_check(got, q, k, v, mask, n_rep: int, scale: float) -> dict:
+    """``got`` [B,S,H*hv] against the plain version of K5 on q [B,S,H,hd],
+    k/v [B,T,Hk,hv], within :func:`k5_tolerance`. Returns the max |error|
+    and the max error / bound (at most 1 to pass)."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_ref, from_flat, to_flat)
+    flat = to_flat(q, k, v, n_rep)
+    kw = dict(scale=scale, kv_len=k.shape[1], causal=mask.kind == "causal",
+              window=mask.window, prefix_len=mask.prefix_len)
+    want = flash_attention_ref(*flat, **kw)
+    tol = k5_tolerance(*flat, want, **kw)
+    B, Hk = q.shape[0], k.shape[2]
+    return _err_over_tol(got, from_flat(want, B, Hk, n_rep),
+                         from_flat(tol, B, Hk, n_rep))
+
+
+def k5_vs_plain(q, k, v, mask, n_rep: int, scale: float) -> dict:
     """K5 (``ops.flash_sdpa`` on the card) against its plain version on
-    the same device and inputs. Returns (max_abs_err, tolerance)."""
+    the same device and inputs: :func:`k5_check`."""
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import flash_sdpa_ref
-    got = ops.flash_sdpa(q, k, v, mask, n_rep, scale)
-    want = flash_sdpa_ref(q, k, v, mask, n_rep, scale)
-    _sync(q.device)
-    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
-    return err, k5_tolerance(v)
+    return k5_check(ops.flash_sdpa(q, k, v, mask, n_rep, scale), q, k, v,
+                    mask, n_rep, scale)
 
 
 def k5_sweep(device, dtype, seed: int):
     """Every case of ``K5_CASES`` in ``dtype``: K5 against its plain
-    version, and rows with no valid key exactly 0. Returns the worst error,
-    the worst error / tolerance, and the failures."""
-    from repro_torch.kernels.flash_attention import ops
+    version within :func:`k5_tolerance` (so rows with no valid key exactly
+    0). Returns the worst error, the worst error / bound, and the
+    failures."""
+    from repro_torch.kernels.flash_attention import cuda
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.models.attention import MaskSpec
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -1430,27 +1492,28 @@ def k5_sweep(device, dtype, seed: int):
             q = rnd(c["B"], c["S"], c["H"], c["hd"])
             k = rnd(c["B"], c["T"], c["Hk"], c["hd"])
             v = rnd(c["B"], c["T"], c["Hk"], c["hd"])
-            err, tol = k5_vs_plain(q, k, v, MaskSpec(*c["mask"]),
-                                   c["H"] // c["Hk"], c["hd"] ** -0.5)
+            r = k5_vs_plain(q, k, v, MaskSpec(*c["mask"]),
+                            c["H"] // c["Hk"], c["hd"] ** -0.5)
         else:
             q = rnd(c["BH"], c["S"], c["hd"])
             k = rnd(c["BH"], c["T"], c["hd"])
             v = rnd(c["BH"], c["T"], c["hd"])
             kw = dict(scale=c["hd"] ** -0.5, kv_len=c["kv_len"],
                       causal=kind == "causal", window=window, prefix_len=pre)
-            got = ops.flash_attention(q, k, v, **kw)
+            got, _ = cuda.launch(q[:, None], k[:, None], v[:, None], n_rep=1,
+                                 **kw)
             want = flash_attention_ref(q, k, v, **kw)
-            err = float((got.float() - want.float()).abs().max())
-            tol = k5_tolerance(v[:, :c["kv_len"]])
+            r = _err_over_tol(got[:, :, 0], want,
+                              k5_tolerance(q, k, v, want, **kw))
             if window:   # rows whose window lies wholly past kv_len
                 empty = torch.arange(c["S"], device=device) - window + 1 \
                     >= c["kv_len"]
-                if not bool(empty.any()) or bool(got[:, empty].ne(0).any()):
-                    bad.append(f"{c}: rows with no valid key are not 0")
-        worst = max(worst, err)
-        ratio = max(ratio, err / tol)
-        if not err <= tol:
-            bad.append(f"{c}: err {err} > tol {tol}")
+                if not bool(empty.any()):
+                    bad.append(f"{c}: no row without a valid key")
+        worst = max(worst, r["max_abs_err"])
+        ratio = max(ratio, r["max_err_over_tol"])
+        if not r["max_err_over_tol"] <= 1.0:
+            bad.append(f"{c}: {r}")
     return dict(max_abs_err=worst, max_err_over_tol=ratio,
                 cases=len(K5_CASES), failures=bad)
 
@@ -1676,22 +1739,32 @@ def _serve_engine(cfg, params, scfg, reqs, dev):
     return res, fails
 
 
-def run_serve(*, seed, device, smoke=False, n_req=16, plen=3072,
-              shared=2048, new_tokens=32, n_pages=1024, runs=25):
-    """The ``serve`` phase: the port's ``Engine`` serving ``n_req``
-    requests of yi-9b (``get_config("yi-9b")``, full width and depth, bf16
-    weights from ``lm.init_params`` under a generator seeded with
-    ``seed``; ``smoke`` takes the SMOKE config, for a rehearsal) through
-    the FB+-tree prefix cache with the ``"fused"`` tree engine; the checks
-    of :func:`_serve_engine`, two fresh engines serving ``reqs[0]`` alike,
-    K5 against its plain version on the real q, k, v of the first and last
+def run_serve(*, seed, runs=25):
+    """The ``serve`` phase on the card: :data:`SERVE_MIX` on
+    ``get_config("yi-9b")`` (full width and depth, bf16 weights from
+    ``lm.init_params`` under a generator seeded with ``seed``) through the
+    FB+-tree prefix cache with the ``"fused"`` tree engine; the checks of
+    :func:`_serve_engine`, two fresh engines serving ``reqs[0]`` alike, K5
+    against its plain version on the real q, k, v of the first and last
     layer and on ``K5_CASES``, and K5's timing at the served shape."""
+    return _serve(seed, torch.device("cuda"), runs, **SERVE_MIX)
+
+
+def rehearse_serve(seed=0):
+    """The ``serve`` phase on the CPU, on yi-9b's SMOKE config with
+    :data:`REHEARSAL_MIX`: every check of the phase but the kernel's (no
+    kernel runs on the CPU: K5 stays below ``FLASH_THRESH`` and K1/K2 run
+    their plain versions). Returns the phase's JSON object."""
+    return _serve(seed, torch.device("cpu"), 0, **REHEARSAL_MIX)[0]
+
+
+def _serve(seed, dev, runs, *, smoke, n_req, plen, shared, new_tokens,
+           n_pages):
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import lm
     from repro_torch.models.attention import CAUSAL
     from repro_torch.serving import Engine, ServeConfig
-    dev = torch.device(device)
     on_card = dev.type == "cuda"
     cfg = get_config(SERVE_ARCH, smoke=smoke)
     t0 = time.perf_counter()
@@ -1716,10 +1789,9 @@ def run_serve(*, seed, device, smoke=False, n_req=16, plen=3072,
         qkv = capture_qkv(params, cfg, torch.as_tensor(reqs[0], device=dev)
                           [None], (0, cfg.n_layers - 1))
         for layer, (q, k, v) in qkv.items():
-            err, tol = k5_vs_plain(q, k, v, CAUSAL, n_rep, cfg.hd ** -0.5)
-            real[layer] = dict(max_abs_err=err, tol=tol)
-            if not err <= tol:
-                fails.append(f"K5 layer {layer}: err {err} > tol {tol}")
+            real[layer] = k5_vs_plain(q, k, v, CAUSAL, n_rep, cfg.hd ** -0.5)
+            if not real[layer]["max_err_over_tol"] <= 1.0:
+                fails.append(f"K5 layer {layer}: {real[layer]}")
         if on_card:    # no kernel runs on the CPU: nothing to sweep
             for dt in (torch.float32, torch.bfloat16):
                 s = k5_sweep(dev, dt, seed)
@@ -1782,8 +1854,6 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=65_536)
     p.add_argument("--runs", type=int, default=25)
     p.add_argument("--e-rounds", type=int, default=16)
-    p.add_argument("--serve-requests", type=int, default=16)
-    p.add_argument("--serve-pages", type=int, default=1024)
     args = p.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1860,10 +1930,8 @@ def main(argv=None) -> int:
     factor = [f for f, _ in f_outs]
     del tree, clean, dirty, rebuilt, qb, ql, sqb, sql, fqb, fql
     torch.cuda.empty_cache()
-    s_out, k5t = run_serve(seed=args.seed, device=dev,
-                           n_req=args.serve_requests,
-                           n_pages=args.serve_pages, runs=args.runs)
-    k5_errs = [r["max_abs_err"] for r in s_out["k5_real"].values()]
+    s_out, k5t = run_serve(seed=args.seed, runs=args.runs)
+    k5_checks = [*s_out["k5_real"].values(), *s_out["k5_sweep"].values()]
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "fused_descent", "route": "cuda",
@@ -1902,8 +1970,9 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
         "launches": s_out["launches"]["k5"],
-        "max_abs_err": max(k5_errs),
-        "tolerance": min(r["tol"] for r in s_out["k5_real"].values()),
+        "max_abs_err": max(r["max_abs_err"] for r in k5_checks),
+        "max_err_over_tol": max(r["max_err_over_tol"] for r in k5_checks),
+        "tolerance": K5_BOUND,
         "ms": k5t["ms"], "plain_ms": k5t["plain_ms"],
         "bound_ms": k5t["bound_ms"], "bound_by": k5t["bound_by"],
         "library_ms": k5t["library_ms"],

@@ -4,7 +4,7 @@ Nothing here runs at import time."""
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,16 +40,18 @@ def _vec(t: torch.Tensor) -> bool:
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, n_rep: int,
            scale: float, kv_len: int, causal: bool, window: int,
-           prefix_len: int) -> torch.Tensor:
+           prefix_len: int) -> Tuple[torch.Tensor, bool]:
     """Launch the kernel on the current stream of ``q``'s device.
 
     ``q [B, H, S, hd]``, ``k [B, Hk, T, hd]`` and ``v [B, Hk, T, hv]`` are
     views with any strides and a contiguous last dim (the caller's
     ``[B, S, H, d]`` tensors permuted, so nothing is copied), float32 or
     bfloat16, on one card; ``H = Hk * n_rep`` and query head ``h`` reads kv
-    head ``h // n_rep``. Returns ``out [B, S, H, hv]`` (contiguous, q's
-    dtype). Raises on any tensor the kernel does not take and on a failed
-    launch.
+    head ``h // n_rep``; keys at or past ``kv_len`` are masked. Returns
+    ``(out, launched)``: ``out [B, S, H, hv]`` (contiguous, q's dtype) and
+    whether the kernel ran (not for an empty ``out``, nor for ``T == 0``,
+    where ``out`` is zeroed here). Raises on any tensor the kernel does not
+    take and on a failed launch.
     """
     dev = q.device
     if dev.type != "cuda":
@@ -89,9 +91,9 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, n_rep: int,
                          f"[0, T={T}]")
     out = torch.empty((B, S, H, hv), dtype=q.dtype, device=dev)
     if S == 0 or B * H == 0:
-        return out
+        return out, False
     if T == 0:
-        return out.zero_()
+        return out.zero_(), False
     o = out.permute(0, 2, 1, 3)
     fn = _fn()
     with torch.cuda.device(dev):
@@ -105,4 +107,4 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, n_rep: int,
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with "
                            f"CUDA error {err}")
-    return out
+    return out, True

@@ -1,23 +1,21 @@
-"""Wrappers for the flash-attention forward kernel (K5) — the port's
+"""Wrapper for the flash-attention forward kernel (K5) — the port's
 counterpart of ``repro.kernels.flash_attention.ops``.
 
 :func:`flash_sdpa` is what ``models.attention.sdpa`` calls above
-``FLASH_THRESH`` for tensors on the card: q [B,S,H,hd], k/v [B,T,Hk,hv] ->
-[B,S,H*hv]. :func:`flash_attention` is the kernel entry in the reference
-kernel's own layout (q [BH,S,hd], kv repeated [BH,T,hv], with ``kv_len``).
-For tensors on the card both launch the CUDA kernel (``cuda.py``) once, or
-raise; for tensors on the CPU they run the plain torch version
-(``ref.py``). Unlike the reference's wrapper, nothing is padded and kv is
-not repeated: the kernel masks its edges and reads kv head ``h // n_rep``
-for query head ``h``. ``LAUNCHES`` counts the kernel launches made in this
-process. The backward (a recompute in the reference) comes with training.
+``FLASH_THRESH``: q [B,S,H,hd], k/v [B,T,Hk,hv] -> [B,S,H*hv]. For tensors
+on the card it launches the CUDA kernel (``cuda.py``) once, or raises; for
+tensors on the CPU it runs the plain torch version (``ref.py``). Unlike the
+reference's wrapper, nothing is padded and kv is not repeated: the kernel
+masks its edges and reads kv head ``h // n_rep`` for query head ``h``.
+``LAUNCHES`` counts the kernel launches made in this process. The backward
+(a recompute in the reference) comes with training.
 """
 from __future__ import annotations
 
 from . import cuda
-from .ref import flash_attention_ref, flash_sdpa_ref
+from .ref import flash_sdpa_ref
 
-__all__ = ["flash_sdpa", "flash_attention", "LAUNCHES"]
+__all__ = ["flash_sdpa", "LAUNCHES"]
 
 LAUNCHES = 0
 
@@ -29,27 +27,10 @@ def flash_sdpa(q, k, v, mask, n_rep: int, scale: float):
     if not q.is_cuda:
         return flash_sdpa_ref(q, k, v, mask, n_rep, scale)
     B, S, H, _ = q.shape
-    out = cuda.launch(q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3),
-                      v.permute(0, 2, 1, 3), n_rep=n_rep, scale=scale,
-                      kv_len=k.shape[1], causal=mask.kind == "causal",
-                      window=mask.window, prefix_len=mask.prefix_len)
-    LAUNCHES += 1
+    out, launched = cuda.launch(
+        q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+        n_rep=n_rep, scale=scale, kv_len=k.shape[1],
+        causal=mask.kind == "causal", window=mask.window,
+        prefix_len=mask.prefix_len)
+    LAUNCHES += launched
     return out.reshape(B, S, H * v.shape[-1])
-
-
-def flash_attention(q, k, v, *, scale: float, kv_len: int,
-                    causal: bool = True, window: int = 0,
-                    prefix_len: int = 0):
-    """q [BH,S,hd], k/v [BH,T,hv] -> [BH,S,hv] (the layout of
-    ``repro.kernels.flash_attention.kernel.flash_attention_kernel``, with
-    ragged S and T)."""
-    global LAUNCHES
-    if not q.is_cuda:
-        return flash_attention_ref(q, k, v, scale=scale, kv_len=kv_len,
-                                   causal=causal, window=window,
-                                   prefix_len=prefix_len)
-    out = cuda.launch(q[:, None], k[:, None], v[:, None], n_rep=1,
-                      scale=scale, kv_len=kv_len, causal=causal,
-                      window=window, prefix_len=prefix_len)
-    LAUNCHES += 1
-    return out[:, :, 0]

@@ -6,13 +6,15 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["NEG", "flash_attention_ref", "flash_sdpa_ref"]
+__all__ = ["NEG", "key_mask", "flash_attention_ref", "flash_sdpa_ref",
+           "to_flat", "from_flat"]
 
 NEG = -1e30
 
 
-def _mask(S: int, T: int, causal: bool, window: int, prefix_len: int,
-          device) -> torch.Tensor:
+def key_mask(S: int, T: int, causal: bool, window: int, prefix_len: int,
+             device) -> torch.Tensor:
+    """[S, T] bool: which keys each query row may see."""
     qi = torch.arange(S, device=device)[:, None]
     kj = torch.arange(T, device=device)[None, :]
     if not causal:
@@ -37,7 +39,7 @@ def flash_attention_ref(q, k, v, *, scale: float, kv_len: int,
     """
     S = q.shape[1]
     kk, vv = k[:, :kv_len], v[:, :kv_len]
-    m = _mask(S, kv_len, causal, window, prefix_len, q.device)
+    m = key_mask(S, kv_len, causal, window, prefix_len, q.device)
     s = torch.einsum("bsh,bth->bst", q.float(), kk.float()) * scale
     s = torch.where(m[None], s, NEG)
     w = torch.softmax(s, dim=-1)
@@ -45,10 +47,10 @@ def flash_attention_ref(q, k, v, *, scale: float, kv_len: int,
     return torch.where(m.any(-1)[None, :, None], out, 0.0).to(v.dtype)
 
 
-def flash_sdpa_ref(q, k, v, mask, n_rep: int, scale: float):
-    """:func:`flash_attention_ref` in the layout of ``ops.flash_sdpa``:
-    q [B,S,H,hd], k/v [B,T,Hk,hv] -> [B,S,H*hv]; heads flattened in the
-    (kv head, rep) order and kv repeated, as the reference's wrapper does."""
+def to_flat(q, k, v, n_rep: int):
+    """q [B,S,H,hd], k/v [B,T,Hk,hv] -> q [BH,S,hd], k/v [BH,T,hv]: heads
+    flattened in the (kv head, rep) order and kv repeated, as the
+    reference's wrapper does."""
     B, S, H, hd = q.shape
     T, Hk = k.shape[1], k.shape[2]
     hv = v.shape[-1]
@@ -58,8 +60,21 @@ def flash_sdpa_ref(q, k, v, mask, n_rep: int, scale: float):
           .reshape(B * H, T, hd)
     vf = v.permute(0, 2, 1, 3)[:, :, None].expand(B, Hk, n_rep, T, hv) \
           .reshape(B * H, T, hv)
-    out = flash_attention_ref(qf, kf, vf, scale=scale, kv_len=T,
+    return qf, kf, vf
+
+
+def from_flat(out, B: int, Hk: int, n_rep: int):
+    """[BH,S,hv] in the order of :func:`to_flat` -> [B,S,H*hv]."""
+    S, hv = out.shape[1], out.shape[2]
+    return out.reshape(B, Hk, n_rep, S, hv).permute(0, 3, 1, 2, 4) \
+              .reshape(B, S, Hk * n_rep * hv)
+
+
+def flash_sdpa_ref(q, k, v, mask, n_rep: int, scale: float):
+    """:func:`flash_attention_ref` in the layout of ``ops.flash_sdpa``:
+    q [B,S,H,hd], k/v [B,T,Hk,hv] -> [B,S,H*hv]."""
+    out = flash_attention_ref(*to_flat(q, k, v, n_rep), scale=scale,
+                              kv_len=k.shape[1],
                               causal=mask.kind == "causal",
                               window=mask.window, prefix_len=mask.prefix_len)
-    return out.reshape(B, Hk, n_rep, S, hv).permute(0, 3, 1, 2, 4) \
-              .reshape(B, S, H * hv)
+    return from_flat(out, q.shape[0], k.shape[2], n_rep)

@@ -25,8 +25,8 @@ from repro_torch.kernels.fused_scan import ops as scan_ops
 from repro_torch.kernels.leaf_probe import cuda as k4cuda
 from repro_torch.kernels.leaf_probe import ops as k4
 
-from chip_smoke import (K5_CASES, int_keys, k3_vs_plain, k4_vs_plain,
-                        k5_sweep, k5_vs_plain, kernel_vs_plain,
+from chip_smoke import (K5_BOUND, K5_CASES, int_keys, k3_vs_plain,
+                        k4_vs_plain, k5_sweep, k5_vs_plain, kernel_vs_plain,
                         scan_kernel_vs_plain, stale_parents, tree_diffs,
                         tree_to, url_keys, ycsb_keys)
 
@@ -335,13 +335,15 @@ def test_cuda_level_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 def test_cuda_flash_attention_matches_plain(cuda_device, dtype):
     """K5 against its plain version over ``chip_smoke.K5_CASES``: ragged S
     and T, every mask kind, GQA n_rep in {1, 4, 8}, kv_len < T, rows with
-    no valid key (exactly 0); tolerance ``chip_smoke.k5_tolerance``
-    (float32: 1e-4 of max(1, max|v|); bf16: 2^-6 of max|v|)."""
+    no valid key (exactly 0); bound ``chip_smoke.k5_tolerance`` (float32:
+    1e-4 of max(1, max|v|); bf16: per element, 2^-6 of |out| + 2^-5 of
+    sqrt(sum w^2 v^2) + kv_len 2^-24 of sum w|v|)."""
     from repro_torch.kernels.flash_attention import ops as k5
     n0 = k5.LAUNCHES
     out = k5_sweep(cuda_device, dtype, seed=5)
     assert out["failures"] == [], out["failures"]
-    assert k5.LAUNCHES == n0 + len(K5_CASES)
+    # the "flat" cases go to cuda.launch directly, past the counter
+    assert k5.LAUNCHES == n0 + sum(c["api"] == "sdpa" for c in K5_CASES)
     torch.cuda.synchronize()
 
 
@@ -357,15 +359,95 @@ def test_cuda_sdpa_above_flash_thresh_is_one_k5_launch(cuda_device):
     n0 = k5.LAUNCHES
     out = A.sdpa(q, k, v, A.CAUSAL, 4)
     assert k5.LAUNCHES == n0 + 1 and out.shape == (1, S, 8 * 64)
-    err, tol = k5_vs_plain(q, k, v, A.CAUSAL, 4, 64 ** -0.5)
-    assert err <= tol
+    assert k5_vs_plain(q, k, v, A.CAUSAL, 4, 64 ** -0.5)[
+        "max_err_over_tol"] <= 1.0
     small = A.sdpa(q[:, :64], k[:, :64], v[:, :64], A.CAUSAL, 4)
     assert k5.LAUNCHES == n0 + 2 and small.shape == (1, 64, 8 * 64)
 
 
 @pytest.mark.cuda
+def test_cuda_flash_sdpa_counts_only_launches(cuda_device):
+    """Empty work launches nothing and counts nothing: no query rows (an
+    empty output) and no keys (an output of zeros)."""
+    from repro_torch.kernels.flash_attention import ops as k5
+    from repro_torch.models.attention import CAUSAL
+    q = torch.ones((1, 8, 4, 16), device="cuda", dtype=torch.bfloat16)
+    kv = torch.ones((1, 8, 2, 16), device="cuda", dtype=torch.bfloat16)
+    n0 = k5.LAUNCHES
+    assert k5.flash_sdpa(q[:, :0], kv, kv, CAUSAL, 2, 0.25).shape == (1, 0, 64)
+    none = k5.flash_sdpa(q, kv[:, :0], kv[:, :0], CAUSAL, 2, 0.25)
+    assert none.shape == (1, 8, 64) and bool((none == 0).all())
+    assert k5.LAUNCHES == n0
+    k5.flash_sdpa(q, kv, kv, CAUSAL, 2, 0.25)
+    assert k5.LAUNCHES == n0 + 1
+
+
+# Faults planted in the bf16 kernel (the served path's flash_fwd_tc), each
+# (what the source says, what the mutant says): the bound of
+# chip_smoke.k5_tolerance must reject every one on K5_CASES.
+K5_MUTANTS = {
+    # rows from 2048 on skip the kv tile of keys 320-383: about 2% of
+    # their weight, only in the S = 3072 case
+    "late_rows_drop_a_tile": ("const int nxt = next_live(kt + 1);",
+                              "const int nxt = next_live(kt + 1 + "
+                              "(kt + 1 == 5 && q0 >= 2048));"),
+    "sum_not_corrected": ("l_r[r] = l_r[r] * corr[r] + sum[r];",
+                          "l_r[r] = l_r[r] + sum[r];"),
+    "correction_in_base_e": ("corr[r] = exp2f(m_r[r] - m_new);",
+                             "corr[r] = __expf(m_r[r] - m_new);"),
+    "window_one_key_wide": ("if (a.window) m = m && (kj > qi - a.window);",
+                            "if (a.window) m = m && (kj >= qi - a.window);"),
+    "diagonal_dropped": ("bool m = kj <= qi;", "bool m = kj < qi;"),
+}
+
+
+@pytest.fixture(scope="module")
+def k5_mutants():
+    """Each mutant's source under ``build/k5_mutants/`` (never the
+    checkout's), built with one ``nvcc`` per mutant, all at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.flash_attention import cuda as k5cuda
+    src = k5cuda.SOURCE.read_text()
+    out = {}
+    for name, (old, new) in K5_MUTANTS.items():
+        assert src.count(old) == 1, name
+        d = nvcc.BUILD_DIR.parent / "k5_mutants" / name
+        d.mkdir(parents=True, exist_ok=True)
+        out[name] = d / k5cuda.SOURCE.name
+        out[name].write_text(src.replace(old, new))
+    nvcc.build(out.values())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K5_MUTANTS))
+def test_cuda_k5_bound_rejects_planted_faults(cuda_device, k5_mutants, name,
+                                              monkeypatch):
+    """The bf16 bound is tight enough to see a wrong kernel: each mutant of
+    ``K5_MUTANTS``, swapped in for the kernel, fails ``k5_sweep``. The
+    worst error, the worst error over the bound and, beside them, the
+    largest |v| of 2^-6 (the size of a bound scaled to max|v|) are
+    printed."""
+    import json
+    from repro_torch.kernels.flash_attention import cuda as k5cuda
+    monkeypatch.setattr(k5cuda, "SOURCE", k5_mutants[name])
+    monkeypatch.setattr(k5cuda, "_FN", None)
+    out = k5_sweep(cuda_device, torch.bfloat16, seed=5)
+    print(json.dumps({"mutant": name, "bound": K5_BOUND,
+                      "max_abs_err": out["max_abs_err"],
+                      "max_err_over_tol": out["max_err_over_tol"],
+                      "cases_failed": len(out["failures"]),
+                      "cases": out["cases"]}))
+    assert out["failures"], name
+    assert out["max_err_over_tol"] > 1.0
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take(
         cuda_device):
+    from repro_torch.kernels.flash_attention import cuda as k5cuda
     from repro_torch.kernels.flash_attention import ops as k5
     from repro_torch.models.attention import CAUSAL
     q = torch.zeros((1, 8, 4, 16), device="cuda")
@@ -381,5 +463,7 @@ def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take(
     big = torch.zeros((1, 8, 2, 256), device="cuda")
     with pytest.raises(ValueError):
         k5.flash_sdpa(big, big, big, CAUSAL, 1, 0.25)  # head dim > 128
-    with pytest.raises(ValueError):
-        k5.flash_attention(q[0], kv[0], kv[0], scale=0.25, kv_len=9)
+    with pytest.raises(ValueError):     # kv_len past T
+        k5cuda.launch(q.permute(0, 2, 1, 3), kv.permute(0, 2, 1, 3),
+                      kv.permute(0, 2, 1, 3), n_rep=2, scale=0.25, kv_len=9,
+                      causal=True, window=0, prefix_len=0)

@@ -334,3 +334,18 @@ def test_engine_serves_its_own_params_and_reuses_prefixes():
     d1 = Engine(cfg, params, scfg).run([reqs[0]])[0].out
     d2 = Engine(cfg, params, scfg).run([reqs[0]])[0].out
     assert d1 == d2
+
+
+def test_chip_smoke_serve_phase_rehearses_on_the_cpu():
+    """``chip_smoke.rehearse_serve``: the card's ``serve`` phase with all of
+    its checks but the kernels' (every request done, evictions and hits,
+    fsck, the cache's calls replayed on a CPU cache with the "torch"
+    engine, cached KV against the request's own prefill, two fresh engines
+    alike) on yi-9b's SMOKE config, 16 requests over 32 pages."""
+    import chip_smoke
+    out = chip_smoke.rehearse_serve(seed=0)
+    assert out["fails"] == []
+    assert out["requests"] == 16 and out["new_tokens"] == 16 * 8
+    assert out["cache_stats"]["evicts"] > 0 and out["cache_stats"]["hits"] > 0
+    assert out["replay_equal"] and out["fsck_ok"] and out["solo_equal"]
+    assert out["kv_loads_checked"] > 0
