@@ -1361,10 +1361,12 @@ SERVE_MIX = dict(smoke=False, n_req=16, plen=3072, shared=2048,
 REHEARSAL_MIX = dict(smoke=True, n_req=16, plen=96, shared=64, new_tokens=8,
                      n_pages=32)
 # The flash-attention sweep held against the plain version on the card (and
-# by tests/test_torch_cuda.py): ragged S and T, every mask kind, GQA n_rep in
-# {1, 4, 8}, kv_len < T and rows with no valid key. "sdpa" cases go through
-# ops.flash_sdpa ([B,S,H,hd], kv not repeated), "flat" cases straight to
-# cuda.launch ([BH,S,hd] with kv_len < T, which flash_sdpa never asks for).
+# by tests/test_torch_cuda.py): ragged S and T (S = T = 1,100 is no multiple
+# of the 128-row tiles: the ring's last lap is ragged and its tail masked),
+# every mask kind, GQA n_rep in {1, 4, 8}, kv_len < T and rows with no valid
+# key. "sdpa" cases go through ops.flash_sdpa ([B,S,H,hd], kv not repeated),
+# "flat" cases straight to cuda.launch ([BH,S,hd] with kv_len < T, which
+# flash_sdpa never asks for).
 K5_CASES = (
     dict(api="sdpa", B=2, S=200, T=200, H=8, Hk=2, hd=32, mask=("causal", 0, 0)),
     dict(api="sdpa", B=1, S=130, T=70, H=4, Hk=4, hd=16, mask=("full", 0, 0)),
@@ -1375,6 +1377,8 @@ K5_CASES = (
          mask=("causal", 100, 0)),
     dict(api="sdpa", B=1, S=3072, T=3072, H=32, Hk=4, hd=128,
          mask=("causal", 0, 0)),
+    dict(api="sdpa", B=1, S=1100, T=1100, H=32, Hk=4, hd=128,
+         mask=("causal", 300, 0)),
     dict(api="flat", BH=2, S=256, T=256, hd=32, kv_len=96, mask=("causal", 40, 0)),
     dict(api="flat", BH=4, S=300, T=333, hd=128, kv_len=200,
          mask=("causal", 0, 0)),
@@ -1569,6 +1573,37 @@ def k5_timing(q, k, v, n_rep: int, runs: int):
                tflops_per_s=flops / k_ms / 1e9, bound_share=b_ms / k_ms,
                shape=dict(B=B, S=S, T=T, H=H, Hk=Hk, hd=hd, dtype=str(q.dtype)))
     emit({"metric": "k5_ms", **out})
+    emit({"metric": "k5_design", **k5_design(hd)})
+    return out
+
+
+def k5_design(head_dim: int) -> dict:
+    """Evidence that the card runs K5's wgmma/TMA body: the kernel's
+    registers a thread, its static and dynamic shared memory and its blocks
+    a SM (``cudaFuncGetAttributes``, ``cudaOccupancyMaxActiveBlocksPer
+    Multiprocessor``), and whether the built library's SASS holds warpgroup
+    MMAs (``HGMMA``) and TMA tile loads (``UTMALDG``), read with
+    ``cuobjdump -sass`` where the tool is on the path (else null; a
+    library without them fails)."""
+    import shutil
+    from torch.utils.cpp_extension import CUDA_HOME
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.flash_attention import cuda
+    out = dict(head_dim=head_dim, **cuda.kernel_attributes(head_dim))
+    lib = nvcc.library_path(cuda.SOURCE)
+    tool = shutil.which("cuobjdump") or (
+        os.path.join(CUDA_HOME, "bin", "cuobjdump") if CUDA_HOME else None)
+    sass = None
+    if tool and os.path.exists(tool):
+        r = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                           text=True, timeout=300)
+        sass = r.stdout if r.returncode == 0 else None
+    out.update(library=os.path.relpath(str(lib), ROOT), cuobjdump=tool,
+               sass_has_hgmma=None if sass is None else "HGMMA" in sass,
+               sass_has_utmaldg=None if sass is None else "UTMALDG" in sass)
+    if sass is not None and not (out["sass_has_hgmma"]
+                                 and out["sass_has_utmaldg"]):
+        raise AssertionError(f"K5's library lacks HGMMA or UTMALDG: {out}")
     return out
 
 

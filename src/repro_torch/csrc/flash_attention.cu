@@ -1,4 +1,4 @@
-// FlashAttention-2 forward for Hopper (sm_90a): out = softmax(q kᵀ · scale,
+// FlashAttention forward for Hopper (sm_90a): out = softmax(q kᵀ · scale,
 // masked) v, one query row at a time, without the [S, T] logits in device
 // memory.
 //
@@ -18,25 +18,41 @@
 //
 // What bounds it: operations. At the served shape (S = T = 3072, 32 heads,
 // head dim 128, causal) the two products are 77 GFLOP against 57 MB of
-// q, k, v and out, 1,400 operations a byte. The design: a block per
-// (batch·head, 64 query rows), the heaviest causal tiles first, and a loop
-// over 64-key tiles of k and v staged in shared memory, tiles the mask rules
-// out entirely skipped (exact: there p = 0 and the correction is 1). In
-// bf16 (the served path) four warps own 16 query rows each and keep
-// everything in registers, as FlashAttention-2 does: q as mma.sync A
-// fragments, the 16x64 scores as m16n8k16 accumulators (float32 sums),
-// the running max and sum per row (four lanes a row), p repacked in place
-// as the A fragments of p·v, and the output accumulator; k and v fragments
-// come from shared memory through ldmatrix (.trans for v), rows padded by
-// 16 bytes so the eight rows of an ldmatrix hit distinct banks; the next
-// live k and v tiles are copied in with cp.async while the current ones are
-// computed (two buffers); tiles the mask keeps whole for a warp's rows skip
-// the per-score mask test, and the softmax runs in base 2 (one exp2f a
-// score; the rounding of s·scale·log2 e moves p by ~1e-6 relative, far
-// below the bf16 rounding of p that follows). In float32 (the reference's
-// tests) 256 threads run scalar FMAs from shared memory. Next for speed:
-// wgmma on 64-row warpgroups fed by TMA, and fewer registers (178 at head
-// dim 128) for a third block on each SM.
+// q, k, v and out, 1,400 operations a byte, so the tensor cores' rate is
+// the wall, and on Hopper only wgmma reaches it. Beside it the softmax's
+// exp2 (one a score on the 16-a-clock special-function units) costs half
+// the products' time, so it has to run while the tensor cores work.
+//
+// bf16 (the served path) follows FlashAttention-3's forward. The grid is
+// persistent, one block an SM, and walks items of 128 query rows of one
+// head, heaviest causal items first. A block is three warpgroups.
+// - The producer warpgroup gives up its registers (setmaxnreg) and one of
+//   its threads issues TMA loads: q into one of two buffers, then each live
+//   128-key tile of k and of v into a ring of two stages, with a full and
+//   an empty mbarrier for each buffer. The tensor maps are 4-D over the
+//   caller's tensors, (dim, row, head, batch) with the caller's strides,
+//   the kv head coordinate h / n_rep; boxes are 64 columns (128 bytes,
+//   128-byte swizzle) by 128 rows, and TMA fills rows past S or T and
+//   columns past the head dim with zeros, which pads head dims below 64 or
+//   128 inside shared memory.
+// - Each consumer warpgroup (setmaxnreg 240) owns 64 of the item's rows.
+//   s = q kᵀ is wgmma m64n128k16 with q and k K-major in shared memory;
+//   the mask and the online softmax run on the float32 accumulator in
+//   registers; p is rounded to bf16 pairs in place, which is the A-operand
+//   layout of the next wgmma (the accumulator of an n8 column pair and the
+//   A fragment of a k16 step hold the same (row, column) pairs), and
+//   o += p v is wgmma m64nDk16 with A from registers and v read as a
+//   transposed (MN-major) B operand. The p·v of tile i - 1 is issued with
+//   the q kᵀ of tile i and runs while tile i's softmax does, and the two
+//   warpgroups take turns to issue (named barriers), so one's softmax runs
+//   beside the other's products. Keys past kv_len or T are masked like any
+//   other (a zero key scores 0, not -inf).
+// - Tiles the mask rules out for the item are never loaded; tiles it keeps
+//   whole for a warp's 16 rows skip the per-score test, and the others
+//   test each key against the row's bounds, computed once a tile.
+// In float32 (the reference's tests) 256 threads run scalar FMAs from shared
+// memory, 64 query rows a block.
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -46,8 +62,8 @@
 namespace fbt {
 namespace fa {
 
-constexpr int kBQ = 64;        // query rows a block
-constexpr int kBK = 64;        // keys a tile
+constexpr int kBQ = 64;        // float32: query rows a block
+constexpr int kBK = 64;        // float32: keys a tile
 constexpr int kDMax = 128;     // largest head dim the kernel takes
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -63,19 +79,10 @@ struct Args {
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_st, v_sb, v_sh, v_st;
   long long o_sb, o_sh, o_ss;
   int kv_len, causal, window, prefix_len;
-  int vec_q, vec_k, vec_v;  // 16-byte loads allowed (bf16 only)
   float scale;
 };
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
-
+// the mask of one (query, key) pair, as the float32 body tests it
 __device__ __forceinline__ bool key_valid(const Args& a, int qi, int kj) {
   if (kj >= a.kv_len) return false;
   if (!a.causal) return true;
@@ -96,273 +103,513 @@ __device__ __forceinline__ bool tile_live(const Args& a, int q0, int q_last,
   return true;
 }
 
-// rows [0, rows) of src (row stride sstride) into dst[64][ld], cols wide;
-// rows [rows, 64) become zero, columns past cols are never written.
-template <typename T>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
-                                          long long sstride, int rows,
-                                          int cols, bool vec) {
-  if (vec) {  // bf16, cols % 8 == 0, every source row 16-byte aligned
-    const int cpr = cols / 8;
-    for (int i = threadIdx.x; i < 64 * cpr; i += blockDim.x) {
-      const int r = i / cpr, c = (i - r * cpr) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows)
-        val = *reinterpret_cast<const uint4*>(src + r * sstride + c);
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-    }
-  } else {
-    for (int i = threadIdx.x; i < 64 * cols; i += blockDim.x) {
-      const int r = i / cols, c = i - r * cols;
-      dst[r * ld + c] = r < rows ? src[r * sstride + c] : from_float<T>(0.f);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero_smem(unsigned char* p, unsigned bytes) {
-  for (unsigned i = threadIdx.x; i < bytes / 16; i += blockDim.x)
-    reinterpret_cast<uint4*>(p)[i] = make_uint4(0u, 0u, 0u, 0u);
+// The first tile of bk keys from kt on that is live for queries
+// [q0, q_last]; n_kt when there is none. The producer and the consumers
+// walk the same tiles through it.
+__device__ __forceinline__ int next_live(const Args& a, int q0, int q_last,
+                                         int kt, int n_kt, int bk) {
+  for (; kt < n_kt; ++kt)
+    if (tile_live(a, q0, q_last, kt * bk, min(kt * bk + bk, a.kv_len) - 1))
+      break;
+  return kt;
 }
 
 // ================================================================== bf16
 
-constexpr int kTcWarps = 4;    // 16 query rows each
+constexpr int kWBQ = 128;      // query rows a block: 64 a consumer warpgroup
+constexpr int kWBK = 128;      // keys a tile
+constexpr int kStages = 2;     // k/v tiles in the ring
+constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kBox = 64;       // bf16 columns of one 128-byte swizzled row
+constexpr long long kHangCycles = 1ll << 33;  // ~4 s: a lost phase traps
 
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+template <int D>  // head dims padded (with zeros, by TMA) to D, D in {64, 128}
+struct Smem {
+  static constexpr int kQ = kWBQ * D * 2;   // q tile: D / 64 boxes of 128 rows
+  static constexpr int kKV = kWBK * D * 2;  // one k (or v) tile
+  // 1024 bytes of slack to align the tiles (the 128-byte swizzle repeats
+  // every 1024 bytes), q, the k ring, the v ring, then the mbarriers
+  static constexpr int kBytes =
+      1024 + 2 * kQ + 2 * kStages * kKV + 8 * (4 + 4 * kStages);
+};
+
+// The mbarriers after the tiles: for each of the two q buffers full and
+// empty, then for each stage k full, v full, k empty, v empty. A full
+// barrier completes when the producer's expected bytes have landed; an
+// empty one when each of the 8 consumer warps has arrived. k and v have
+// barriers of their own because a warpgroup is done with k_i before it is
+// done with v_(i-1).
+struct Bars {
+  uint32_t base;
+  __device__ uint32_t q_full(int i) const { return base + 16 * i; }
+  __device__ uint32_t q_empty(int i) const { return base + 8 + 16 * i; }
+  __device__ uint32_t k_full(int s) const { return base + 32 + 32 * s; }
+  __device__ uint32_t v_full(int s) const { return base + 40 + 32 * s; }
+  __device__ uint32_t k_empty(int s) const { return base + 48 + 32 * s; }
+  __device__ uint32_t v_empty(int s) const { return base + 56 + 32 * s; }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// arrive once and expect `bytes` more of TMA on the barrier's phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A wait that lasts
+// kHangCycles traps (a launch failure the caller sees) instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  for (int spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (spin == 0)
+      t0 = clock64();
+    else if (clock64() - t0 > kHangCycles)
+      __trap();
+  }
+}
+
+// one box of a 4-D tensor map at coordinates (c0 innermost .. c3) into
+// shared memory, completing `bytes` of the barrier's transaction count
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
 }
 
-// c += a · b, m16n8k16, bf16 inputs, float32 sums
-__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
-                                    unsigned b0, unsigned b1) {
+// wgmma descriptor of a tile with 128-byte swizzle (layout type 1, bits
+// 62-63): start address >> 4 (bits 0-13), leading byte offset >> 4 (16-29),
+// stride byte offset >> 4 (32-45), base offset 0 (every tile is 1024-byte
+// aligned; a k16 step inside a swizzled row moves the start by 32 bytes).
+__device__ __forceinline__ uint64_t sw128(uint32_t addr, uint32_t lbo,
+                                          uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>  // until at most N committed groups are in flight
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Pin a register at this point of the program: wgmma reads and writes its
+// operands asynchronously, so no access may move across the wait.
+__device__ __forceinline__ void pin(float& r) {
+  asm volatile("" : "+f"(r) :: "memory");
+}
+__device__ __forceinline__ void pin(uint32_t& r) {
+  asm volatile("" : "+r"(r) :: "memory");
+}
+
+#define FBT_F8(i)                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 128, float32) = a · bᵀ (+ d when acc): a 64 x 16 and b 128 x 16
+// bf16, both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int acc) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : FBT_F8(0), FBT_F8(8), FBT_F8(16), FBT_F8(24), FBT_F8(32), FBT_F8(40),
+        FBT_F8(48), FBT_F8(56)
+      : "l"(a), "l"(b), "r"(acc));
 }
 
-// 16 bytes global -> shared without a register round trip; full = false
-// writes 16 zero bytes (nothing is read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(full ? 16 : 0));
+// d (64 x 128) += a · b: a 64 x 16 bf16 from registers (four pairs a
+// thread), b 16 x 128 bf16 MN-major in shared memory (transposed operand)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, "
+      "1;\n}\n"
+      : FBT_F8(0), FBT_F8(8), FBT_F8(16), FBT_F8(24), FBT_F8(32), FBT_F8(40),
+        FBT_F8(48), FBT_F8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// the same with d 64 x 64
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : FBT_F8(0), FBT_F8(8), FBT_F8(16), FBT_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
-__device__ __forceinline__ void cp_async_wait_1() {  // all but the newest
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
+#undef FBT_F8
 
-// load_rows for bf16 tiles of D columns (cols <= D of them data),
-// asynchronous where rows allow 16-byte copies (vec), else the synchronous
-// copy; the caller commits and waits
 template <int D>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           long long sstride, int rows,
-                                           int cols, bool vec) {
-  constexpr int LD = D + 8, CPR = D / 8;
-  if (!vec) {
-    load_rows<bf16>(dst, LD, src, sstride, rows, cols, false);
-    return;
-  }
-  for (int i = threadIdx.x; i < 64 * CPR; i += blockDim.x) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    if (c >= cols) continue;
-    const bool ok = r < rows;
-    cp_async16(dst + r * LD + c, src + (ok ? r * sstride + c : 0), ok);
-  }
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* p,
+                                         uint64_t b) {
+  if constexpr (D == 128)
+    wgmma_rs_n128(o, p, b);
+  else
+    wgmma_rs_n64(o, p, b);
 }
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+// 2^x, one MUFU op (ex2.approx, relative error ~2^-22; ftz: results below
+// 2^-126 become 0, far below the bf16 rounding of p that follows)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<unsigned*>(&v);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>  // head dims padded (with zeros) to D, D in {32, 64, 128}
-__global__ void __launch_bounds__(32 * kTcWarps)
-flash_fwd_tc(const Args a) {
-  constexpr int LD = D + 8;  // row pitch in bf16: 16 bytes of pad
-  constexpr int TILE = kBK * LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Kb = Qs + kBQ * LD;   // two k tiles, then two v tiles
-  bf16* Vb = Kb + 2 * TILE;
+// o += p v over one k/v stage: 16 keys a step, p's pairs of keys
+// 16kk + [0, 16) the A fragment of step kk, v read transposed
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&p)[kWBK / 4],
+                                         uint32_t vb) {
+#pragma unroll
+  for (int kk = 0; kk < kWBK / 16; ++kk)
+    wgmma_pv<D>(o, p + 4 * kk, sw128(vb + kk * 16 * 128, kWBK * 128, 1024));
+  wg_commit();
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;  // fragment row / column pair
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int bh = blockIdx.y;
-  const int b = bh / a.H, h = bh - (bh / a.H) * a.H, kh = h / a.n_rep;
-  const int q0 = qt * kBQ;
-  const int q_rows = min(kBQ, a.S - q0);
-  const int q_last = q0 + q_rows - 1;
-  const int n_kt = (a.kv_len + kBK - 1) / kBK;  // kv_len <= T
-  const bf16* qg = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh +
-                   static_cast<long long>(q0) * a.q_ss;
-  const bf16* kg = static_cast<const bf16*>(a.k) + b * a.k_sb + kh * a.k_sh;
-  const bf16* vg = static_cast<const bf16*>(a.v) + b * a.v_sb + kh * a.v_sh;
-  auto next_live = [&](int kt) {  // first tile >= kt the mask does not skip
-    for (; kt < n_kt; ++kt)
-      if (tile_live(a, q0, q_last, kt * kBK, min(kt * kBK + kBK, a.kv_len) - 1))
-        break;
-    return kt;
-  };
-  auto stage_tile = [&](int kt, int buf) {
-    const int k0 = kt * kBK, rows = min(kBK, a.kv_len - k0);
-    stage_rows<D>(Kb + buf * TILE, kg + k0 * a.k_st, a.k_st, rows, a.hd,
-                  a.vec_k);
-    stage_rows<D>(Vb + buf * TILE, vg + k0 * a.v_st, a.v_st, rows, a.hv,
-                  a.vec_v);
-  };
-
-  zero_smem(smem, sizeof(bf16) * (kBQ + 4 * kBK) * LD);  // pad cols stay 0
-  __syncthreads();
-  // pipeline: the copy of tile n+1 is in flight while tile n is computed
-  stage_rows<D>(Qs, qg, a.q_ss, q_rows, a.hd, a.vec_q);
-  cp_async_commit();
-  int kt = next_live(0), buf = 0;
-  if (kt < n_kt) stage_tile(kt, 0);
-  cp_async_commit();
-  cp_async_wait_1();  // q is in
-  __syncthreads();
-  unsigned qf[D / 16][4];  // this warp's 16 q rows as A fragments
+// s = q kᵀ for one k stage: 64 rows x 128 keys, D / 16 steps of k16, q and
+// k K-major
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[kWBK / 2], uint32_t qa,
+                                         uint32_t kb) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
-                        (lane >> 4) * 8);
+    wgmma_ss_n128(
+        s, sw128(qa + (kk >> 2) * kWBQ * 128 + (kk & 3) * 32, 16, 1024),
+        sw128(kb + (kk >> 2) * kWBK * 128 + (kk & 3) * 32, 16, 1024), kk > 0);
+  wg_commit();
+}
 
-  float o[D / 8][4];
+// The online softmax of one tile on the s accumulator of this thread's rows
+// qr and qr + 8 (keys k0 + 8j + 2 t4 + c at s[4j + 2r + c]). It runs in
+// base 2 on s·scale·log2 e, one exp2 a score: exp(x - m) = exp2(x·log2 e -
+// m·log2 e). Masked scores become -inf (p exactly 0); a tile the mask keeps
+// whole for the warp's 16 rows from rq0 skips the test, on a branch of its
+// own (evaluated with predicates, the test would cost more than the rest of
+// the softmax), and the others test each key against its row's bounds (a
+// general per-pair test, inlined 64 times, doubled the kernel's code and
+// registers). For scale > 0 the row max is taken on the raw scores and
+// scaled once, and each p is one FFMA and one exp2; a negative scale scales
+// every score first. Leaves p in s and the factor the accumulator must be
+// scaled by in corr.
+__device__ __forceinline__ void softmax_tile(const Args& a, float (&s)[kWBK / 2],
+                                             float (&m_r)[2], float (&l_r)[2],
+                                             float (&corr)[2], int k0, int rq0,
+                                             int qr, int t4, float scale2) {
+  const int k_last = k0 + kWBK - 1;
+  const bool whole =
+      k_last < a.kv_len &&
+      (!a.causal || k_last < a.prefix_len ||
+       (k_last <= rq0 && (!a.window || k0 > rq0 + 15 - a.window)));
+  const bool raw = scale2 > 0.f;  // max(s)·scale2 = max(s·scale2); -inf stays
+  const float pre = raw ? 1.f : scale2;    // applied before the max
+  const float post = raw ? scale2 : 1.f;   // applied in the exponent
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  if (whole && raw) {
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.f, 0.f};  // rows g and g + 8
-  const int qr = q0 + warp * 16 + g;
-  const float scale2 = a.scale * 1.4426950408889634f;  // · log2 e
-
-  while (kt < n_kt) {
-    const int k0 = kt * kBK;
-    const int nxt = next_live(kt + 1);
-    if (nxt < n_kt) stage_tile(nxt, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_1();  // tile kt is in
-    __syncthreads();
-    const bf16* Ks = Kb + buf * TILE;
-    const bf16* Vs = Vb + buf * TILE;
-
-    // s = q kᵀ: 8 accumulators of 16 rows x 8 keys
-    float s[kBK / 8][4];
+    for (int j = 0; j < kWBK / 2; ++j)
+      mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
+  } else if (whole) {
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kBK / 16; ++np) {
-        unsigned kb[4];  // b0, b1 of keys np*16 + [0, 8) and of [8, 16)
-        ldsm_x4(kb, Ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                        kk * 16 + ((lane >> 3) & 1) * 8);
-        mma(s[2 * np], qf[kk], kb[0], kb[1]);
-        mma(s[2 * np + 1], qf[kk], kb[2], kb[3]);
-      }
+    for (int j = 0; j < kWBK / 2; ++j) {
+      s[j] *= scale2;
+      mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
     }
-
-    // mask and scale (masked scores -inf, so p is exactly 0 there), row max;
-    // a tile the mask keeps whole for this warp's 16 rows skips the test
-    const int k_last = k0 + kBK - 1, wq0 = q0 + warp * 16;
-    const bool whole =
-        k_last < a.kv_len &&
-        (!a.causal || k_last < a.prefix_len ||
-         (k_last <= wq0 && (!a.window || k0 > wq0 + 15 - a.window)));
-    // scores in the base-2 domain (s·scale·log2 e) so each exponential is
-    // one exp2f: exp(x - m) = exp2(x·log2 e - m·log2 e)
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kj = k0 + j * 8 + 2 * t4 + (e & 1);
-        const bool ok = whole || key_valid(a, qr + (e >> 1) * 8, kj);
-        s[j][e] = ok ? s[j][e] * scale2 : -CUDART_INF_F;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    float corr[2], sum[2] = {0.f, 0.f};
+  } else {
+    // the keys row qr + 8r may see: [lo[r], hi[r]) and [0, pre_len)
+    int lo[2], hi[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
-      const float m_new = fmaxf(m_r[r], mx[r]);  // finite: m_r starts at kNeg
-      corr[r] = exp2f(m_r[r] - m_new);
-      m_r[r] = m_new;
+      const int qi = qr + 8 * r;
+      hi[r] = a.causal ? min(qi + 1, a.kv_len) : a.kv_len;
+      lo[r] = a.causal && a.window ? qi - a.window + 1 : 0;
     }
+    const int pre_len = a.causal ? min(a.prefix_len, a.kv_len) : 0;
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
+    for (int j = 0; j < kWBK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(s[j][e] - m_r[e >> 1]);
-        sum[e >> 1] += s[j][e];
+        const int kj = k0 + j * 8 + 2 * t4 + (e & 1), r = e >> 1;
+        float& x = s[4 * j + e];
+        x = (kj >= lo[r] && kj < hi[r]) || kj < pre_len ? x * pre
+                                                        : -CUDART_INF_F;
+        mx[r] = fmaxf(mx[r], x);
       }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(kFull, sum[r], 1);
-      sum[r] += __shfl_xor_sync(kFull, sum[r], 2);
-      l_r[r] = l_r[r] * corr[r] + sum[r];
-    }
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[j][0] *= corr[0]; o[j][1] *= corr[0];
-      o[j][2] *= corr[1]; o[j][3] *= corr[1];
-    }
-
-    // o += p v: p (rounded to bf16) repacked as A fragments, 16 keys a step
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const unsigned pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        unsigned vb[4];  // b0, b1 of dims dp*16 + [0, 8) and of [8, 16)
-        ldsm_x4_t(vb, Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                          dp * 16 + (lane >> 4) * 8);
-        mma(o[2 * dp], pa, vb[0], vb[1]);
-        mma(o[2 * dp + 1], pa, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with buf before it is refilled
-    kt = nxt;
-    buf ^= 1;
   }
-
-  bf16* og = static_cast<bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
+  float sum[2] = {0.f, 0.f};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = qr + r * 8;
-    if (qi >= a.S) continue;
-    const float den = fmaxf(l_r[r], 1e-20f);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int d = j * 8 + 2 * t4 + c;
-        if (d < a.hv)
-          og[qi * a.o_ss + d] = __float2bfloat16(o[j][2 * r + c] / den);
-      }
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+    const float m_new = fmaxf(m_r[r], mx[r] * post);  // finite: m_r starts at kNeg
+    corr[r] = exp2f(m_r[r] - m_new);
+    m_r[r] = m_new;
   }
+#pragma unroll
+  for (int j = 0; j < kWBK / 2; ++j) {
+    s[j] = ex2(fmaf(s[j], post, -m_r[(j >> 1) & 1]));
+    sum[(j >> 1) & 1] += s[j];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(kFull, sum[r], 1);
+    sum[r] += __shfl_xor_sync(kFull, sum[r], 2);
+    l_r[r] = l_r[r] * corr[r] + sum[r];
+  }
+}
+
+// The work of a launch: n_qt · B · H items of 128 query rows, heaviest
+// causal first (item i is q tile n_qt - 1 - i / (B·H) of head i % (B·H)).
+// The grid is persistent, one block an SM; in round r block j takes item
+// r·G + j, or r·G + G - 1 - j on odd rounds (a snake, so no block gets the
+// heaviest item of every round).
+__device__ __forceinline__ int item_of(int r) {
+  const int G = gridDim.x, j = blockIdx.x;
+  return r * G + ((r & 1) ? G - 1 - j : j);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const Args a) {
+  using L = Smem<D>;
+  extern __shared__ unsigned char smem[];
+  const uint32_t sq = (smem_u32(smem) + 1023u) & ~1023u;  // two q buffers
+  const uint32_t sk = sq + 2 * L::kQ, sv = sk + kStages * L::kKV;
+  const Bars bar{sv + kStages * L::kKV};
+
+  const int BH = a.B * a.H, n_qt = (a.S + kWBQ - 1) / kWBQ;
+  const int n_items = n_qt * BH;
+  const int n_kt = (a.kv_len + kWBK - 1) / kWBK;  // kv_len <= T
+  const int wg = threadIdx.x / 128;  // 0: producer, 1 and 2: consumers
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(bar.q_full(i), 1);   // the producer's expect_tx
+      mbar_init(bar.q_empty(i), 8);  // one arrive a consumer warp
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar.k_full(s), 1);
+      mbar_init(bar.v_full(s), 1);
+      mbar_init(bar.k_empty(s), 8);
+      mbar_init(bar.v_empty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // ------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int stage = 0, phase = 0;
+      for (int r = 0, it = item_of(0); it < n_items; it = item_of(++r)) {
+        const int bh = it % BH, qt = n_qt - 1 - it / BH;
+        const int b = bh / a.H, h = bh - b * a.H, kh = h / a.n_rep;
+        const int q0 = qt * kWBQ, q_last = min(q0 + kWBQ, a.S) - 1;
+        const int qb = r & 1;  // the q buffer of this item
+        mbar_wait(bar.q_empty(qb), ((r >> 1) & 1) ^ 1);  // first use passes
+        mbar_expect_tx(bar.q_full(qb), L::kQ);
+        for (int c = 0; c < D / kBox; ++c)
+          tma_load(sq + qb * L::kQ + c * kWBQ * 128, &tq, bar.q_full(qb),
+                   c * kBox, q0, h, b);
+        for (int kt = next_live(a, q0, q_last, 0, n_kt, kWBK); kt < n_kt;
+             kt = next_live(a, q0, q_last, kt + 1, n_kt, kWBK)) {
+          const uint32_t off = stage * L::kKV;
+          mbar_wait(bar.k_empty(stage), phase ^ 1);  // the first lap passes
+          mbar_expect_tx(bar.k_full(stage), L::kKV);
+          for (int c = 0; c < D / kBox; ++c)
+            tma_load(sk + off + c * kWBK * 128, &tk, bar.k_full(stage),
+                     c * kBox, kt * kWBK, kh, b);
+          mbar_wait(bar.v_empty(stage), phase ^ 1);
+          mbar_expect_tx(bar.v_full(stage), L::kKV);
+          for (int c = 0; c < D / kBox; ++c)
+            tma_load(sv + off + c * kWBK * 128, &tv, bar.v_full(stage),
+                     c * kBox, kt * kWBK, kh, b);
+          if (++stage == kStages) stage = 0, phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  // FlashAttention-3's intra-warpgroup overlap: the p·v product of tile
+  // i - 1 runs on the tensor cores while the softmax of tile i runs here.
+  // The first tile is peeled off and the last p·v follows the loop, so
+  // every product is issued and waited for on one path (a wgmma in flight
+  // across a branch makes ptxas serialize them all). The two warpgroups
+  // take turns to issue their products (named barriers 1 and 2), so one's
+  // softmax runs beside the other's products.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = wg - 1;  // which 64 rows of the block
+  const int tid = threadIdx.x - 128 * wg;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int t4 = lane & 3;  // accumulator column pair
+  const float scale2 = a.scale * 1.4426950408889634f;  // · log2 e
+  auto arrive = [&](uint32_t b) {  // this warp is done with a buffer
+    __syncwarp();
+    if (lane == 0) mbar_arrive(b);
+  };
+  float o[D / 2];  // m64nD accumulator: (row, 8j + 2 t4 + c) at o[4j + 2r + c]
+  float s[kWBK / 2], corr[2];
+  uint32_t p[kWBK / 4];  // p of the previous tile in bf16 pairs: the A
+                         // fragments of its p·v (key pairs 16kk + [0, 16))
+
+  if (cw == 1) named_arrive(1);  // the first warpgroup issues first
+  int stage = 0, phase = 0;
+  for (int r = 0, it = item_of(0); it < n_items; it = item_of(++r)) {
+    const int bh = it % BH, qt = n_qt - 1 - it / BH;
+    const int b = bh / a.H, h = bh - b * a.H;
+    const int q0 = qt * kWBQ, q_last = min(q0 + kWBQ, a.S) - 1;
+    const int rq0 = q0 + 64 * cw + 16 * warp;  // this warp's first row
+    const int qr = rq0 + (lane >> 2);          // this thread's rows qr, qr + 8
+    const int qb = r & 1;
+    // this warpgroup's 64 rows of q, one 128-byte column box after another
+    const uint32_t qa = sq + qb * L::kQ + cw * 64 * 128;
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+    float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.f, 0.f};  // rows qr and qr + 8
+
+    mbar_wait(bar.q_full(qb), (r >> 1) & 1);
+    int kt = next_live(a, q0, q_last, 0, n_kt, kWBK);
+    if (kt < n_kt) {
+      mbar_wait(bar.k_full(stage), phase);
+      named_sync(1 + cw);
+      wg_fence();
+      issue_qk<D>(s, qa, sk + stage * L::kKV);
+      named_arrive(1 + (cw ^ 1));
+      wg_wait<0>();
+#pragma unroll
+      for (int j = 0; j < kWBK / 2; ++j) pin(s[j]);
+      arrive(bar.k_empty(stage));
+      softmax_tile(a, s, m_r, l_r, corr, kt * kWBK, rq0, qr, t4, scale2);
+#pragma unroll
+      for (int j = 0; j < kWBK / 4; ++j)
+        p[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+      for (kt = next_live(a, q0, q_last, kt + 1, n_kt, kWBK); kt < n_kt;
+           kt = next_live(a, q0, q_last, kt + 1, n_kt, kWBK)) {
+        const int prev = stage, prev_phase = phase;
+        if (++stage == kStages) stage = 0, phase ^= 1;
+        mbar_wait(bar.v_full(prev), prev_phase);
+        mbar_wait(bar.k_full(stage), phase);
+        named_sync(1 + cw);
+        wg_fence();
+        issue_qk<D>(s, qa, sk + stage * L::kKV);
+        issue_pv<D>(o, p, sv + prev * L::kKV);
+        named_arrive(1 + (cw ^ 1));
+        wg_wait<1>();  // s is in; the p·v may still run
+#pragma unroll
+        for (int j = 0; j < kWBK / 2; ++j) pin(s[j]);
+        arrive(bar.k_empty(stage));
+        softmax_tile(a, s, m_r, l_r, corr, kt * kWBK, rq0, qr, t4, scale2);
+        wg_wait<0>();  // the p·v is done: o and p are free
+#pragma unroll
+        for (int j = 0; j < D / 2; ++j) pin(o[j]);
+#pragma unroll
+        for (int j = 0; j < kWBK / 4; ++j) pin(p[j]);
+        arrive(bar.v_empty(prev));
+#pragma unroll
+        for (int j = 0; j < D / 2; ++j) o[j] *= corr[(j >> 1) & 1];
+#pragma unroll
+        for (int j = 0; j < kWBK / 4; ++j)
+          p[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+      }
+      arrive(bar.q_empty(qb));  // every q kᵀ of the item is done
+      mbar_wait(bar.v_full(stage), phase);  // the last tile's p·v
+      named_sync(1 + cw);
+      wg_fence();
+      issue_pv<D>(o, p, sv + stage * L::kKV);
+      named_arrive(1 + (cw ^ 1));
+      wg_wait<0>();
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) pin(o[j]);
+#pragma unroll
+      for (int j = 0; j < kWBK / 4; ++j) pin(p[j]);
+      arrive(bar.v_empty(stage));
+      if (++stage == kStages) stage = 0, phase ^= 1;
+    } else {
+      arrive(bar.q_empty(qb));
+    }
+
+    bf16* og = static_cast<bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int qi = qr + rr * 8;
+      if (qi >= a.S) continue;  // rows past S are never stored
+      // acc / max(l, 1e-20) as a product with the reciprocal: within an
+      // f32 ulp of the quotient, far below the bf16 rounding that follows
+      const float inv = 1.f / fmaxf(l_r[rr], 1e-20f);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int d = j * 8 + 2 * t4;  // hv is a multiple of 8: d + 1 < hv
+        if (d < a.hv)
+          *reinterpret_cast<__nv_bfloat162*>(og + qi * a.o_ss + d) =
+              __floats2bfloat162_rn(o[4 * j + 2 * rr] * inv,
+                                    o[4 * j + 2 * rr + 1] * inv);
+      }
+    }
+  }
+  if (cw == 0) named_sync(1);  // the second warpgroup's last arrive
 }
 
 // ================================================================= float32
@@ -393,6 +640,17 @@ inline F32Layout f32_layout(int hd, int hv) {
   return L;
 }
 
+// rows [0, rows) of src (row stride sstride) into dst[64][ld], cols wide;
+// rows [rows, 64) become zero, columns past cols are never written.
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
+                                          long long sstride, int rows,
+                                          int cols) {
+  for (int i = threadIdx.x; i < 64 * cols; i += blockDim.x) {
+    const int r = i / cols, c = i - r * cols;
+    dst[r * ld + c] = r < rows ? src[r * sstride + c] : 0.f;
+  }
+}
+
 __global__ void __launch_bounds__(kF32Threads)
 flash_fwd_f32(const Args a, const F32Layout L) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -413,7 +671,7 @@ flash_fwd_f32(const Args a, const F32Layout L) {
                     static_cast<long long>(q0) * a.q_ss;
   const float* kg = static_cast<const float*>(a.k) + b * a.k_sb + kh * a.k_sh;
   const float* vg = static_cast<const float*>(a.v) + b * a.v_sb + kh * a.v_sh;
-  load_rows<float>(Qs, L.ldq, qg, a.q_ss, q_rows, a.hd, false);
+  load_rows(Qs, L.ldq, qg, a.q_ss, q_rows, a.hd);
 
   // softmax state: four threads a row (sr), identical copies in each
   const int sr = tid >> 2, sub = tid & 3;
@@ -432,8 +690,8 @@ flash_fwd_f32(const Args a, const F32Layout L) {
     const int k0 = kt * kBK;
     const int k_rows = min(kBK, a.kv_len - k0);
     if (!tile_live(a, q0, q_last, k0, k0 + k_rows - 1)) continue;
-    load_rows<float>(Ks, L.ldk, kg + k0 * a.k_st, a.k_st, k_rows, a.hd, false);
-    load_rows<float>(Vs, L.ldv, vg + k0 * a.v_st, a.v_st, k_rows, a.hv, false);
+    load_rows(Ks, L.ldk, kg + k0 * a.k_st, a.k_st, k_rows, a.hd);
+    load_rows(Vs, L.ldv, vg + k0 * a.v_st, a.v_st, k_rows, a.hv);
     __syncthreads();
 
     {  // Ss = q kᵀ (unscaled)
@@ -532,14 +790,87 @@ flash_fwd_f32(const Args a, const F32Layout L) {
 
 // ================================================================ launches
 
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so that the library links no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4-D map of a bf16 tensor whose element (b, h, r, c) lies at
+// b*sb + h*sh + r*sr + c: dims (cols, rows, heads, batch), boxes of 64
+// columns by `box_rows` rows with the 128-byte swizzle, zeros outside. A dim
+// of extent 1 is never stepped along, so its stride is replaced by a valid
+// one. False when TMA cannot describe the tensor (a base not 16-byte
+// aligned, a stride not a multiple of 16 bytes).
+inline bool make_map(CUtensorMap* map, const void* base, int cols, int rows,
+                     int heads, int batch, long long sr, long long sh,
+                     long long sb, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const long long row_bytes = 16 * ((2ll * cols + 15) / 16);
+  auto bytes = [&](long long st, int n) { return n > 1 ? 2 * st : row_bytes; };
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(bytes(sr, rows)),
+      static_cast<cuuint64_t>(bytes(sh, heads)),
+      static_cast<cuuint64_t>(bytes(sb, batch))};
+  for (const cuuint64_t st : strides)
+    if (st % 16 != 0) return false;
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0) return false;
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kBox),
+                             static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D>
-cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(bf16) * (kBQ + 4 * kBK) * (D + 8));
+cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  const int Hk = a.H / a.n_rep;
+  if (!make_map(&tq, a.q, a.hd, a.S, a.H, a.B, a.q_ss, a.q_sh, a.q_sb, kWBQ) ||
+      !make_map(&tk, a.k, a.hd, a.T, Hk, a.B, a.k_st, a.k_sh, a.k_sb, kWBK) ||
+      !make_map(&tv, a.v, a.hv, a.T, Hk, a.B, a.v_st, a.v_sh, a.v_sb, kWBK))
+    return cudaErrorInvalidValue;
+  constexpr int smem = Smem<D>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.S + kBQ - 1) / kBQ, a.B * a.H);
-  flash_fwd_tc<D><<<grid, 32 * kTcWarps, smem, stream>>>(a);
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess)
+    return e;
+  const int items = a.B * a.H * ((a.S + kWBQ - 1) / kWBQ);
+  flash_fwd_wgmma<D><<<items < sms ? items : sms, kThreads, smem, stream>>>(
+      tq, tk, tv, a);
   return cudaGetLastError();
 }
 
@@ -559,17 +890,17 @@ inline cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
 
 // Plain C entry, bound with ctypes. dtype 0 = float32, 1 = bfloat16. The
 // caller checks shapes (S, T >= 1, B*H <= 65535, head dims <= 128,
-// kv_len <= T), allocates the output and keeps every tensor alive. Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for an
-// argument the kernel does not take).
+// kv_len <= T; for bf16 head dims a multiple of 8, bases 16-byte aligned and
+// strides a multiple of 8 elements), allocates the output and keeps every
+// tensor alive. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for an argument the kernel does not take).
 extern "C" int fbt_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int H, int n_rep, int S, int T, int hd, int hv, long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_st, long long v_sb, long long v_sh, long long v_st,
     long long o_sb, long long o_sh, long long o_ss, int kv_len, int causal,
-    int window, int prefix_len, int vec_q, int vec_k, int vec_v, float scale,
-    void* stream) {
+    int window, int prefix_len, float scale, void* stream) {
   using namespace fbt::fa;
   if (S < 1 || T < 1 || B < 1 || H < 1 || n_rep < 1 || H % n_rep != 0 ||
       B * H > 65535 || hd < 1 || hd > kDMax || hv < 1 || hv > kDMax ||
@@ -584,12 +915,31 @@ extern "C" int fbt_flash_attention(
   a.o_sb = o_sb; a.o_sh = o_sh; a.o_ss = o_ss;
   a.kv_len = kv_len; a.causal = causal; a.window = window;
   a.prefix_len = prefix_len; a.scale = scale;
-  a.vec_q = vec_q; a.vec_k = vec_k; a.vec_v = vec_v;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_f32(a, s);
-  if (dtype != 1) return cudaErrorInvalidValue;
-  const int d = hd > hv ? hd : hv;
-  if (d <= 32) return launch_tc<32>(a, s);
-  if (d <= 64) return launch_tc<64>(a, s);
-  return launch_tc<128>(a, s);
+  if (dtype != 1 || hd % 8 != 0 || hv % 8 != 0) return cudaErrorInvalidValue;
+  return (hd > 64 || hv > 64) ? launch_wgmma<128>(a, s) : launch_wgmma<64>(a, s);
+}
+
+// What the bf16 kernel for head dims padded to `d` (64 or 128) asks of the
+// card: registers a thread as compiled (before setmaxnreg moves them from
+// the producer to the consumers), static and dynamic shared memory in
+// bytes, and the blocks that fit on one SM. Returns a CUDA error code.
+extern "C" int fbt_flash_attention_attrs(int d, int* regs, int* static_smem,
+                                         int* dyn_smem, int* blocks_per_sm) {
+  using namespace fbt::fa;
+  const void* fn = d > 64 ? reinterpret_cast<const void*>(flash_fwd_wgmma<128>)
+                          : reinterpret_cast<const void*>(flash_fwd_wgmma<64>);
+  const int dyn = d > 64 ? Smem<128>::kBytes : Smem<64>::kBytes;
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, fn);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           dyn);
+  if (e != cudaSuccess) return e;
+  *regs = fa.numRegs;
+  *static_smem = static_cast<int>(fa.sharedSizeBytes);
+  *dyn_smem = dyn;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
+                                                       kThreads, dyn);
 }

@@ -382,22 +382,52 @@ def test_cuda_flash_sdpa_counts_only_launches(cuda_device):
     assert k5.LAUNCHES == n0 + 1
 
 
-# Faults planted in the bf16 kernel (the served path's flash_fwd_tc), each
-# (what the source says, what the mutant says): the bound of
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,causal", ((128, False), (128, True), (64, False)))
+def test_cuda_k5_p_layout_with_identity_v(cuda_device, hd, causal):
+    """v = the identity makes the output the softmax weights themselves,
+    column j the weight of key j: a wrong register layout of p (the A
+    operand of p·v) or a wrong descriptor of the transposed v moves
+    weights to other columns and breaks the bound."""
+    from chip_smoke import _err_over_tol, k5_tolerance
+    from repro_torch.kernels.flash_attention import cuda as k5cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(device="cuda").manual_seed(hd + causal)
+    S, T = 200, hd
+    q = torch.randn((1, S, hd), generator=g, device="cuda").bfloat16()
+    k = torch.randn((1, T, hd), generator=g, device="cuda").bfloat16()
+    v = torch.eye(T, hd, device="cuda", dtype=torch.bfloat16)[None]
+    kw = dict(scale=hd ** -0.5, kv_len=T, causal=causal, window=0,
+              prefix_len=0)
+    got, launched = k5cuda.launch(q[:, None], k[:, None], v[:, None],
+                                  n_rep=1, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    r = _err_over_tol(got[:, :, 0], want, k5_tolerance(q, k, v, want, **kw))
+    assert launched and r["max_err_over_tol"] <= 1.0, r
+
+
+# Faults planted in the bf16 kernel (the served path's flash_fwd_wgmma),
+# each (what the source says, what the mutant says): the bound of
 # chip_smoke.k5_tolerance must reject every one on K5_CASES.
 K5_MUTANTS = {
-    # rows from 2048 on skip the kv tile of keys 320-383: about 2% of
-    # their weight, only in the S = 3072 case
-    "late_rows_drop_a_tile": ("const int nxt = next_live(kt + 1);",
-                              "const int nxt = next_live(kt + 1 + "
-                              "(kt + 1 == 5 && q0 >= 2048));"),
+    # items from row 2048 on skip the kv tile of keys 256-383 (producer and
+    # consumers alike, through next_live): about 4% of their rows' weight,
+    # only in the S = 3072 case
+    "late_rows_drop_a_tile": (
+        "if (tile_live(a, q0, q_last, kt * bk, min(kt * bk + bk, a.kv_len) "
+        "- 1))",
+        "if (tile_live(a, q0, q_last, kt * bk, min(kt * bk + bk, a.kv_len) "
+        "- 1) && !(kt == 2 && q0 >= 2048))"),
     "sum_not_corrected": ("l_r[r] = l_r[r] * corr[r] + sum[r];",
                           "l_r[r] = l_r[r] + sum[r];"),
     "correction_in_base_e": ("corr[r] = exp2f(m_r[r] - m_new);",
                              "corr[r] = __expf(m_r[r] - m_new);"),
-    "window_one_key_wide": ("if (a.window) m = m && (kj > qi - a.window);",
-                            "if (a.window) m = m && (kj >= qi - a.window);"),
-    "diagonal_dropped": ("bool m = kj <= qi;", "bool m = kj < qi;"),
+    "window_one_key_wide": (
+        "lo[r] = a.causal && a.window ? qi - a.window + 1 : 0;",
+        "lo[r] = a.causal && a.window ? qi - a.window : 0;"),
+    "diagonal_dropped": (
+        "hi[r] = a.causal ? min(qi + 1, a.kv_len) : a.kv_len;",
+        "hi[r] = a.causal ? min(qi, a.kv_len) : a.kv_len;"),
 }
 
 
@@ -463,6 +493,10 @@ def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take(
     big = torch.zeros((1, 8, 2, 256), device="cuda")
     with pytest.raises(ValueError):
         k5.flash_sdpa(big, big, big, CAUSAL, 1, 0.25)  # head dim > 128
+    buf = torch.zeros(1 + 8 * 4 * 16, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="TMA"):   # base 2 bytes off
+        k5.flash_sdpa(buf[1:].view(1, 8, 4, 16), kv.bfloat16(),
+                      kv.bfloat16(), CAUSAL, 2, 0.25)
     with pytest.raises(ValueError):     # kv_len past T
         k5cuda.launch(q.permute(0, 2, 1, 3), kv.permute(0, 2, 1, 3),
                       kv.permute(0, 2, 1, 3), n_rep=2, scale=0.25, kv_len=9,

@@ -213,3 +213,100 @@ def test_sdpa_dispatch_on_the_cpu_takes_the_tiled_path():
     small = PA.sdpa(q[:, :64], k[:, :64], v[:, :64], PA.CAUSAL, 2)
     assert torch.equal(small, PA._sdpa_small(q[:, :64], k[:, :64],
                                              v[:, :64], PA.CAUSAL, 2))
+
+
+# ------------------------------------------- K5's input checks, on the CPU
+
+def _bf16(shape, offset=0, strides=None):
+    """A bf16 view of ``shape`` whose base lies ``offset`` elements into a
+    fresh buffer (an allocation is 64-byte aligned), with ``strides`` if
+    given."""
+    n = int(np.prod(shape)) if strides is None else 1 + sum(
+        (d - 1) * s for d, s in zip(shape, strides))
+    buf = torch.zeros(n + offset, dtype=torch.bfloat16)
+    if strides is None:
+        return buf[offset:].view(shape)
+    return buf.as_strided(shape, strides, offset)
+
+
+def _heads(x):
+    """[B, rows, heads, d] -> the [B, heads, rows, d] view launch takes."""
+    return x.permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("name,t,why", [
+    ("contiguous [B,S,H,d] heads", _heads(_bf16((2, 70, 4, 128))), None),
+    ("head dim 24 of one head", _heads(_bf16((3, 65, 1, 24))), None),
+    ("base 16 bytes in", _heads(_bf16((1, 64, 2, 64), offset=8)), None),
+    ("extent-1 dims with odd strides",
+     _bf16((1, 1, 64, 16), strides=(5, 3, 16, 1)), None),
+    ("base 2 bytes in", _heads(_bf16((1, 64, 2, 64), offset=1)),
+     "not 16-byte aligned"),
+    ("base 8 bytes in", _heads(_bf16((1, 64, 2, 64), offset=4)),
+     "not 16-byte aligned"),
+    ("head dim 20", _heads(_bf16((1, 64, 1, 20))), "not a multiple of 8"),
+    ("head stride 20 elements", _heads(_bf16((1, 64, 4, 20))[..., :16]),
+     "not multiples of 16 bytes"),
+    ("row stride 12 elements", _bf16((2, 1, 64, 8), strides=(768, 768, 12, 1)),
+     "not multiples of 16 bytes"),
+])
+def test_k5_tma_refusal_on_cpu_tensors(name, t, why):
+    """``cuda.tma_refusal``: which bf16 views the kernel's TMA loads can
+    describe (base 16-byte aligned, head dim and every stride of a dim of
+    extent above 1 whole 16-byte units) and why the others are refused."""
+    from repro_torch.kernels.flash_attention import cuda as k5cuda
+    got = k5cuda.tma_refusal(t)
+    if why is None:
+        assert got is None, (name, got)
+    else:
+        assert got is not None and why in got, (name, got)
+
+
+def _qkv(H=4, Hk=2, S=64, T=64, hd=64, hv=64, dtype=torch.bfloat16):
+    return (_heads(torch.zeros((1, S, H, hd), dtype=dtype)),
+            _heads(torch.zeros((1, T, Hk, hd), dtype=dtype)),
+            _heads(torch.zeros((1, T, Hk, hv), dtype=dtype)))
+
+
+@pytest.mark.parametrize("name,build,kw,exc", [
+    ("bf16 GQA", lambda: _qkv(), {}, None),
+    ("float32, head dim 20", lambda: _qkv(hd=20, hv=20, dtype=torch.float32),
+     {}, None),
+    ("bf16 kv_len < T", lambda: _qkv(T=96), dict(kv_len=40), None),
+    ("not 4-D", lambda: tuple(x[0] for x in _qkv()), {}, ValueError),
+    ("kv heads x n_rep != heads", lambda: _qkv(), dict(n_rep=4), ValueError),
+    ("k and v rows disagree", lambda: (*_qkv()[:2], _qkv(T=32)[2]), {},
+     ValueError),
+    ("v another dtype", lambda: (*_qkv()[:2], _qkv(dtype=torch.float32)[2]),
+     {}, TypeError),
+    ("float16", lambda: _qkv(dtype=torch.float16), {}, TypeError),
+    ("last dim strided", lambda: (_qkv()[0].transpose(2, 3), *_qkv()[1:]), {},
+     ValueError),
+    ("head dim 256", lambda: _qkv(hd=256, hv=256), {}, ValueError),
+    ("kv_len past T", lambda: _qkv(), dict(kv_len=65), ValueError),
+    ("bf16 base not aligned",
+     lambda: (_heads(_bf16((1, 64, 4, 64), offset=1)), *_qkv()[1:]), {},
+     ValueError),
+    ("bf16 head dim 20", lambda: _qkv(hd=20, hv=20), {}, ValueError),
+])
+def test_k5_check_inputs_on_cpu_tensors(name, build, kw, exc):
+    """``cuda.check_inputs``, everything ``launch`` checks but the device,
+    on CPU tensors: the shapes, dtypes and layouts it refuses, and bf16
+    views TMA cannot describe (``ValueError``), while float32 takes any
+    head dim and bf16 any describable GQA view."""
+    from repro_torch.kernels.flash_attention import cuda as k5cuda
+    q, k, v = build()
+    args = dict(n_rep=2, kv_len=k.shape[2] if k.dim() == 4 else 0)
+    args.update(kw)
+    if exc is None:
+        k5cuda.check_inputs(q, k, v, **args)
+    else:
+        with pytest.raises(exc):
+            k5cuda.check_inputs(q, k, v, **args)
+
+
+def test_k5_launch_refuses_cpu_tensors():
+    from repro_torch.kernels.flash_attention import cuda as k5cuda
+    with pytest.raises(ValueError, match="CUDA"):
+        k5cuda.launch(*_qkv(), n_rep=2, scale=0.125, kv_len=64, causal=True,
+                      window=0, prefix_len=0)
