@@ -2,8 +2,10 @@
 //
 // The CUDA twin of repro/kernels/feature_branch/kernel.py::
 // feature_compare_rounds and of its plain torch version
-// repro_torch/kernels/feature_branch/ref.py. It is defined once here so that
-// every kernel that resolves a level shares it.
+// repro_torch/kernels/feature_branch/ref.py. It is defined once here
+// (rounds_over) so that every kernel that resolves a level shares it: K3
+// reads each row as its round comes, the descents of K1 and K2 hand it the
+// rows they loaded with the rest of the level.
 //
 // The paper compares 64 anchor bytes with one AVX-512 instruction and reads
 // the result as a 64-bit mask (compare_equal / compare_less + TZCNT). Here a
@@ -49,15 +51,45 @@ __device__ __forceinline__ int mask_last(const SlotMask<NS>& m) {
   return -1;
 }
 
-// Rounds over a node's feature block `feats` ([fs, NS] bytes, row = one
-// feature byte of every anchor). The query's byte for round `fid` is
-// q[qbase + fid], or 0 when qbase + fid >= qlim. The prefix (pcmp) and
-// trivial-node (knum <= 1) overrides are folded in, in the reference's
-// order, so !resolved is exactly the set billed for the binary search.
-template <int NS, bool STATS>
-__device__ __forceinline__ RoundsOut feature_compare_rounds(
-    const uint8_t* __restrict__ feats, int fs, const uint8_t* __restrict__ q,
-    int qbase, int qlim, int knum, int pcmp, int lane) {
+// The slots whose lane flag is set (v[k]: slot 32k + lane), by ballots.
+template <int NS>
+__device__ __forceinline__ SlotMask<NS> ballot_mask(const bool (&v)[NS / 32]) {
+  SlotMask<NS> m;
+#pragma unroll
+  for (int i = 0; i < SlotMask<NS>::kWords; ++i)
+    m.w[i] = static_cast<unsigned long long>(__ballot_sync(kFullMask, v[2 * i])) |
+             (static_cast<unsigned long long>(__ballot_sync(kFullMask, v[2 * i + 1]))
+              << 32);
+  return m;
+}
+
+// Clear slot s of the mask.
+template <int NS>
+__device__ __forceinline__ void clear_slot(SlotMask<NS>& m, int s) {
+#pragma unroll
+  for (int i = 0; i < SlotMask<NS>::kWords; ++i)  // no indexed store
+    m.w[i] &= ~(static_cast<unsigned long long>((s >> 6) == i) << (s & 63));
+}
+
+// A feature row as one lane holds it: f[k] is the feature byte of slot
+// 32k + lane.
+template <int NS>
+__device__ __forceinline__ void load_feature_row(
+    const uint8_t* __restrict__ row, int lane, uint32_t (&f)[NS / 32]) {
+#pragma unroll
+  for (int k = 0; k < NS / 32; ++k) f[k] = row[32 * k + lane];
+}
+
+// The rounds over a node's feature rows: `row_at(fid, f)` puts row fid in
+// f (as load_feature_row) and `q_at(fid)` gives the query's byte for that
+// round. The
+// prefix (pcmp) and trivial-node (knum <= 1) overrides are folded in, in the
+// reference's order, so !resolved is exactly the set billed for the binary
+// search. A caller may hand rows already loaded (the descent loads a
+// level's rows together) or load each as the rounds reach it (K3).
+template <int NS, bool STATS, class RowAt, class QAt>
+__device__ __forceinline__ RoundsOut rounds_over(RowAt row_at, QAt q_at,
+                                                 int fs, int knum, int pcmp) {
   static_assert(NS % 64 == 0, "NS must be a multiple of 64");
   constexpr int kWords = SlotMask<NS>::kWords;
   RoundsOut out{0, true, 0, 0, 0};
@@ -75,12 +107,14 @@ __device__ __forceinline__ RoundsOut feature_compare_rounds(
   }
   bool resolved = false;
   for (int fid = 0; fid < fs; ++fid) {
-    const uint8_t qv = (qbase + fid < qlim) ? q[qbase + fid] : 0;
+    const int qv = q_at(fid);
+    uint32_t f[NS / 32];
+    row_at(fid, f);
     SlotMask<NS> m, less;
 #pragma unroll
     for (int i = 0; i < kWords; ++i) {
-      const uint8_t f0 = feats[fid * NS + 64 * i + lane];
-      const uint8_t f1 = feats[fid * NS + 64 * i + 32 + lane];
+      const int f0 = f[2 * i];      // slot 64i + lane
+      const int f1 = f[2 * i + 1];  // slot 64i + 32 + lane
       const unsigned long long e =
           static_cast<unsigned long long>(__ballot_sync(kFullMask, f0 == qv)) |
           (static_cast<unsigned long long>(__ballot_sync(kFullMask, f1 == qv)) << 32);
@@ -111,6 +145,22 @@ __device__ __forceinline__ RoundsOut feature_compare_rounds(
   if (pcmp > 0) out.idx = kmax;
   out.resolved = resolved || pcmp != 0;
   return out;
+}
+
+// Rounds over a node's feature block `feats` ([fs, NS] bytes, row = one
+// feature byte of every anchor), each row read as its round comes. The
+// query's byte for round `fid` is q[qbase + fid], or 0 when qbase + fid >=
+// qlim.
+template <int NS, bool STATS>
+__device__ __forceinline__ RoundsOut feature_compare_rounds(
+    const uint8_t* __restrict__ feats, int fs, const uint8_t* __restrict__ q,
+    int qbase, int qlim, int knum, int pcmp, int lane) {
+  return rounds_over<NS, STATS>(
+      [&](int fid, uint32_t (&f)[NS / 32]) {
+        load_feature_row<NS>(feats + fid * NS, lane, f);
+      },
+      [&](int fid) { return qbase + fid < qlim ? int(q[qbase + fid]) : 0; },
+      fs, knum, pcmp);
 }
 
 }  // namespace fbt

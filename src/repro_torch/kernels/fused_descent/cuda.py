@@ -8,9 +8,9 @@ from typing import Optional
 
 import torch
 
-from ..nvcc import CSRC, check, load
+from ..nvcc import CSRC, attributes, check, load
 
-__all__ = ["launch", "SOURCE"]
+__all__ = ["launch", "kernel_attributes", "SOURCE"]
 
 SOURCE = CSRC / "fused_descent.cu"
 _FN: Optional[ctypes._CFuncPtr] = None
@@ -98,3 +98,13 @@ def launch(arrays, qb: torch.Tensor, ql: torch.Tensor, *, sibling_check: bool,
         raise RuntimeError(f"fused_descent: kernel launch failed with CUDA "
                            f"error {err}")
     return leaf, path, found, slot, val, stats
+
+
+def kernel_attributes(ns: int, L: int, *, stats: bool, sibling: bool,
+                      probe: bool) -> dict:
+    """What the instantiation a launch at ``ns``, key width ``L`` and these
+    flags takes asks of the current card: registers and local memory
+    (spills) a thread, static and dynamic shared memory and threads a
+    block, and the blocks that fit on one SM."""
+    return attributes(load(SOURCE).fbt_fused_descent_attrs, "fused_descent",
+                      ns, L, int(stats), int(sibling), int(probe))

@@ -8,9 +8,9 @@ from typing import Optional
 
 import torch
 
-from ..nvcc import CSRC, check, load
+from ..nvcc import CSRC, attributes, check, load
 
-__all__ = ["launch", "SOURCE"]
+__all__ = ["launch", "kernel_attributes", "SOURCE"]
 
 SOURCE = CSRC / "fused_scan.cu"
 _FN: Optional[ctypes._CFuncPtr] = None
@@ -98,3 +98,12 @@ def launch(arrays, qb: torch.Tensor, ql: torch.Tensor, *, max_items: int,
         raise RuntimeError(f"fused_scan: kernel launch failed with CUDA "
                            f"error {err}")
     return out_kid, out_val, emitted, rearranged
+
+
+def kernel_attributes(ns: int, L: int, stats: bool) -> dict:
+    """What the instantiation a launch at ``ns``, key width ``L`` and
+    ``stats`` takes asks of the current card: registers and local memory
+    (spills) a thread, static and dynamic shared memory and threads a
+    block, and the blocks that fit on one SM."""
+    return attributes(load(SOURCE).fbt_fused_scan_attrs, "fused_scan",
+                      ns, L, int(stats))

@@ -26,7 +26,7 @@ from typing import Dict, Iterable, List, Optional
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "BUILD_LOG", "sources",
-           "library_path", "build", "load", "check"]
+           "library_path", "build", "load", "check", "attributes"]
 
 _PKG = Path(__file__).resolve().parents[1]          # src/repro_torch
 CSRC = _PKG / "csrc"
@@ -139,3 +139,20 @@ def check(kernel: str, name: str, t: torch.Tensor, dtype: torch.dtype,
                          f"expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+ATTRS = ("registers", "local_bytes", "static_smem_bytes", "dynamic_smem_bytes",
+         "blocks_per_sm", "threads")
+
+
+def attributes(fn, kernel: str, *args: int) -> dict:
+    """Call a tree kernel's ``fbt_*_attrs(args..., int out[6])`` entry
+    (``csrc/attrs.cuh``) and name its six numbers (:data:`ATTRS`)."""
+    out = (ctypes.c_int * len(ATTRS))()
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    err = fn(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{kernel}: attributes failed with CUDA error "
+                           f"{err}")
+    return dict(zip(ATTRS, out))

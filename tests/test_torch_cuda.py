@@ -27,8 +27,8 @@ from repro_torch.kernels.leaf_probe import ops as k4
 
 from chip_smoke import (K5_BOUND, K5_CASES, int_keys, k3_vs_plain,
                         k4_vs_plain, k5_sweep, k5_vs_plain, kernel_vs_plain,
-                        scan_kernel_vs_plain, stale_parents, tree_diffs,
-                        tree_to, url_keys, ycsb_keys)
+                        scan_kernel_vs_plain, stale_parents, tie_scan_tree,
+                        tree_diffs, tree_to, url_keys, ycsb_keys)
 
 GEN = {"ycsb": ycsb_keys, "url": url_keys, "int": int_keys}
 
@@ -100,7 +100,15 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 
 def _scan_tree(kind, ns, dirty, n=4000, seed=5):
     """A tree on the card, dirtied by the port's own inserts (fit and split
-    paths) when asked, and scan starts on and between its keys."""
+    paths) when asked, and scan starts on and between its keys. ``tieW`` is
+    ``chip_smoke.tie_keys`` at width W (twins that only the length
+    tie-break orders, ties on the first 4, 8 and 16 bytes, 0x00/0xFF at
+    word boundaries)."""
+    if kind.startswith("tie"):
+        tree, qb, ql, twins = tie_scan_tree(int(kind[3:]), ns, seed, "cuda",
+                                            n_ins=700 if dirty else 0)
+        assert twins > 0 or not dirty
+        return tree, qb, ql
     kb, kl = GEN[kind](n + 1200, seed)
     perm = np.random.default_rng(seed).permutation(n + 1200)
     kb, kl = kb[perm], kl[perm]        # the inserts spread over the tree
@@ -120,9 +128,14 @@ def _scan_tree(kind, ns, dirty, n=4000, seed=5):
     return tree, qb, ql
 
 
+TIE_CASES = tuple((f"tie{w}", ns) for w in (21, 24, 28, 37)
+                  for ns in (64, 128))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dirty", (False, True), ids=("clean", "dirty"))
-@pytest.mark.parametrize("kind,ns", (("ycsb", 64), ("url", 64), ("int", 128)))
+@pytest.mark.parametrize("kind,ns", (("ycsb", 64), ("url", 64), ("int", 128))
+                         + TIE_CASES)
 def test_cuda_scan_kernel_matches_plain(cuda_device, kind, ns, dirty):
     tree, qb, ql = _scan_tree(kind, ns, dirty)
     if dirty:
@@ -148,6 +161,78 @@ def test_cuda_range_scan_is_one_launch(cuda_device):
     for g, w in zip(got, want):
         assert g.is_cuda and torch.equal(g, w)
     assert int(got[3].sum()) > 0                # dirty leaves were ranked
+
+
+# Faults planted in K2's dirty-leaf rank (csrc/fused_scan.cu), each (what
+# the source says, what the mutant says): the tie-key trees of TIE_CASES
+# must catch every one.
+K2_MUTANTS = {
+    # twins (equal padded bytes) compare equal: two pairs take one column
+    "length_tie_break_dropped": (
+        "return lt || (eq && lens[i] < lens[j]);", "return lt;"),
+    # words compare from their last byte
+    "word_little_endian": ("  return bswap64(x);", "  return x;"),
+    # the last word of a width that is no multiple of 8 takes the next
+    # pool row's first bytes: twins are ordered by those, not by length
+    "partial_word_not_zeroed": (
+        "x |= static_cast<uint64_t>(p < L ? row[p] : 0) << (8 * j);",
+        "x |= static_cast<uint64_t>(row[p]) << (8 * j);"),
+}
+
+
+@pytest.fixture(scope="module")
+def k2_mutants():
+    """Each mutant's csrc copy under ``build/k2_mutants/`` (never the
+    checkout's), built with one ``nvcc`` per mutant, all at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.fused_scan import cuda as k2cuda
+    src = k2cuda.SOURCE.read_text()
+    out = {}
+    for name, (old, new) in K2_MUTANTS.items():
+        assert src.count(old) == 1, name
+        d = nvcc.BUILD_DIR.parent / "k2_mutants" / name
+        d.mkdir(parents=True, exist_ok=True)
+        for h in nvcc.CSRC.glob("*.cuh"):
+            (d / h.name).write_text(h.read_text())
+        out[name] = d / k2cuda.SOURCE.name
+        out[name].write_text(src.replace(old, new))
+    nvcc.build(out.values())
+    return out
+
+
+@pytest.fixture(scope="module")
+def tie_trees():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    return {(kind, ns): _scan_tree(kind, ns, dirty=True)
+            for kind, ns in TIE_CASES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K2_MUTANTS))
+def test_cuda_k2_tie_keys_reject_planted_faults(cuda_device, k2_mutants,
+                                                tie_trees, name,
+                                                monkeypatch):
+    """The tie-key trees are hard enough to see a wrong rank: each mutant of
+    ``K2_MUTANTS``, swapped in for the kernel, differs from the plain
+    version on some of them (max_items 1, 50 and 300, stats on and off).
+    The cases each mutant fails are printed."""
+    import json
+    from repro_torch.kernels.fused_scan import cuda as k2cuda
+    monkeypatch.setattr(k2cuda, "SOURCE", k2_mutants[name])
+    monkeypatch.setattr(k2cuda, "_FN", None)
+    failed = []
+    for (kind, ns), (tree, qb, ql) in tie_trees.items():
+        for max_items in (1, 50, 300):
+            try:
+                scan_kernel_vs_plain(tree, qb, ql, max_items)
+            except AssertionError:
+                failed.append(f"{kind}-ns{ns}-m{max_items}")
+    torch.cuda.synchronize()
+    print(json.dumps({"mutant": name, "cases_failed": failed}))
+    assert failed, name
 
 
 @pytest.mark.cuda

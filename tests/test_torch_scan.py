@@ -16,6 +16,7 @@ lanes, so the reference compiles each op once per ns; the url tree (width
 72) is scanned clean, as a reference insert round at that width takes
 longer to compile than this file's budget.
 """
+import dataclasses
 import functools
 
 import jax
@@ -39,6 +40,7 @@ from repro_torch.kernels.fused_scan import ops as p_ops
 from repro_torch.kernels.fused_scan.ref import fused_range_scan_ref
 
 from benchmarks.common import make_dataset
+from chip_smoke import tie_scan_tree
 from test_torch_mutations import BATCH, KW, config, to_port
 
 OUT = ("kid", "val", "emitted", "rearranged")
@@ -259,3 +261,41 @@ def test_scan_rejects_bad_max_items_and_drains_obs():
         assert pobs.get_metric("span.op.scan").count == 1
     finally:
         robs.disable(), robs.reset(), pobs.disable(), pobs.reset()
+
+
+def to_reference(pt):
+    """The reference's copy of a port tree (numpy in between)."""
+    from repro.core import fbtree as RF
+    a = pt.arrays
+    arr = lambda t: jnp.asarray(t.numpy())
+    level = lambda lv: RF.Level(*(arr(getattr(lv, f)) for f in RF.Level._fields))
+    fields = {f: (tuple(level(lv) for lv in a.levels) if f == "levels" else
+                  level(a.stacked) if f == "stacked" else arr(getattr(a, f)))
+              for f in RF.TreeArrays._fields}
+    cfg = dict(dataclasses.asdict(pt.config), val_dtype=jnp.int32)
+    return RF.FBTree(RF.TreeConfig(**cfg), RF.TreeArrays(**fields))
+
+
+@pytest.mark.parametrize("ns,width", ((64, 21), (128, 28)))
+def test_scan_tie_keys_match_reference_fused(ns, width):
+    """Keys that packed words can get wrong (``chip_smoke.tie_keys``: twins
+    with equal padded bytes and lengths that differ, ties on the first 4, 8
+    and 16 bytes, 0x00/0xFF at word boundaries, a width that is no multiple
+    of 8), dirtied by the port's own inserts: the port's scan (the plain
+    version of the fused scan on the CPU) equals the reference's fused
+    Pallas scan (interpret mode) bit for bit, and a sorted oracle."""
+    pt, qb, ql, twins = tie_scan_tree(width, ns, seed=ns + width,
+                                      device="cpu")
+    assert twins > 0                    # dirty leaves hold twin pairs
+    rt = to_reference(pt)
+    qbn, qln = qb.numpy(), ql.numpy()
+    want = ref_scan(rt, qbn, qln, backend="fused")
+    got = PB.range_scan(pt, qb, ql, max_items=M,
+                        engine=TraversalEngine("fused"))
+    assert_scan_equal(got, want, ("tie", ns, width))
+    assert int(want[3].sum()) > 0       # dirty leaves were ranked
+    for i in range(0, qbn.shape[0], 17):
+        ek, ev = _oracle(pt, qbn[i], qln[i], M)
+        n = int(want[2][i])
+        assert n == len(ek) and (want[0][i, :n] == ek).all()
+        assert (want[1][i, :n] == ev).all()
