@@ -159,10 +159,14 @@ def zipf_indices(rng, n_keys: int, n_ops: int, theta: float = 0.99):
     return rng.permutation(n_keys)[np.clip(idx, 0, n_keys - 1)]
 
 
+URL_WIDTH = 72
+
+
 def url_keys(n: int, seed: int):
-    """A host drawn by zipf(1.2), then ``word/word_number``, at most 72 B."""
+    """A host drawn by zipf(1.2), then ``word/word_number``, at most
+    ``URL_WIDTH`` bytes."""
     rng = np.random.default_rng(seed)
-    have = np.zeros(0, "S72")
+    have = np.zeros(0, f"S{URL_WIDTH}")
     while have.size < n:
         m = n - have.size + 1024
         host = rng.zipf(1.2, size=m) % len(HOSTS)
@@ -171,11 +175,11 @@ def url_keys(n: int, seed: int):
         num = rng.integers(0, 10**9, size=m)
         word = lambda i, w: "".join(SYLL[s] for s in syl[i, w, :wl[i, w]])
         new = np.array([(HOSTS[host[i]] + word(i, 0) + "/" + word(i, 1) + "_"
-                         + str(num[i])).encode()[:72] for i in range(m)],
-                       dtype="S72")
+                         + str(num[i])).encode()[:URL_WIDTH] for i in range(m)],
+                       dtype=f"S{URL_WIDTH}")
         have = np.unique(np.concatenate([have, new]))
     have = have[:n]
-    return (have.view(np.uint8).reshape(n, 72).copy(),
+    return (have.view(np.uint8).reshape(n, URL_WIDTH).copy(),
             np.char.str_len(have).astype(np.int32))
 
 
@@ -189,88 +193,6 @@ def int_keys(n: int, seed: int):
             [xs, rng.integers(0, 2**63, size=n - xs.size + 1024)]))
     xs = rng.permutation(xs[:n])
     return encode_uint64(xs.astype(np.uint64)), np.full(n, 8, np.int32)
-
-
-TIE_BYTES = np.array([0x00, 0x01, 0x7F, 0x80, 0xFE, 0xFF], np.uint8)
-
-
-def tie_keys(n: int, width: int, seed: int):
-    """``n`` distinct keys of width ``width`` that packed words can get
-    wrong, in random order: each starts with one of 4 shared prefixes of
-    4, 8 or 16 bytes (keys that tie on their first 4, 8 and 16 bytes), and
-    every other byte is 0x00, 0x01, 0x7F, 0x80, 0xFE or 0xFF, so 0x00 and
-    0xFF sit at every word boundary; a third of the keys shorter than the
-    width come with a twin, the same bytes one longer, whose last byte is
-    the 0x00 padding (equal padded bytes, lengths that differ: only the
-    length tie-break orders them)."""
-    rng = np.random.default_rng(seed)
-    plens = [p for p in (4, 8, 16) if p < width]
-    fams = {p: rng.choice(TIE_BYTES, size=(4, p)) for p in plens}
-    rows = np.zeros((0, width + 1), np.uint8)        # bytes, then length
-    while rows.shape[0] < n:
-        m = n
-        kb = rng.choice(TIE_BYTES, size=(m, width))
-        pl = rng.choice(plens, size=m)
-        for p in plens:
-            sel = pl == p
-            kb[sel, :p] = fams[p][rng.integers(0, 4, sel.sum())]
-        kl = rng.integers(pl + 1, width + 1)
-        kb[np.arange(width)[None, :] >= kl[:, None]] = 0
-        twin = (rng.random(m) < 1 / 3) & (kl < width)
-        new = np.concatenate([
-            np.concatenate([kb, kl[:, None].astype(np.uint8)], 1),
-            np.concatenate([kb[twin], (kl[twin] + 1)[:, None].astype(np.uint8)],
-                           1)])
-        rows = np.unique(np.concatenate([rows, new]), axis=0)
-    rows = rows[rng.permutation(rows.shape[0])[:n]]
-    return rows[:, :width].copy(), rows[:, width].astype(np.int32)
-
-
-def tie_scan_tree(width: int, ns: int, seed: int, device, n: int = 3000,
-                  n_ins: int = 700, n_q: int = 600):
-    """A tree of :func:`tie_keys` dirtied by the port's own ``insert_batch``
-    (``n - n_ins`` keys built, ``n_ins`` inserted: fit and split paths;
-    ``n_ins`` 0 leaves the tree clean),
-    scan starts on and between its keys (``n_q``; a third with their last
-    byte flipped, and every key whose twin is in the tree), and the number
-    of twin pairs (equal padded bytes, lengths that differ) that share a
-    dirty leaf. Returns ``(tree, qb, ql, twins_in_dirty_leaves)``."""
-    from repro_torch.core import batch_ops, fbtree
-    from repro_torch.core.keys import KeySet
-    from repro_torch.core.traverse import TraversalEngine
-    kb, kl = tie_keys(n, width, seed)
-    cfg = fbtree.TreeConfig.plan(max_keys=2 * n, key_width=width, ns=ns)
-    m = n - n_ins
-    tree = fbtree.bulk_build(cfg, KeySet(kb[:m], kl[:m]),
-                             np.arange(m, dtype=np.int32), target=device)
-    if n_ins:
-        tree, _, _ = batch_ops.insert_batch(
-            tree, kb[m:], kl[m:], np.arange(m, n, dtype=np.int32),
-            engine=TraversalEngine("fused"))
-    a = tree.arrays
-    occ = a.leaf_occ.cpu().numpy()
-    kid = a.leaf_keyid.cpu().numpy()
-    dirty = ~a.leaf_ordered.cpu().numpy()
-    pool = a.key_bytes.cpu().numpy()
-    lens = a.key_lens.cpu().numpy()
-    twins = 0
-    for leaf in np.nonzero(dirty[:int(a.leaf_count)])[0]:
-        ids = kid[leaf][occ[leaf]]
-        keys = {}
-        for k in ids:
-            keys.setdefault(pool[k].tobytes(), []).append(lens[k])
-        twins += sum(len(v) - 1 for v in keys.values())
-    rng = np.random.default_rng(seed)
-    pick = rng.integers(0, n, n_q)
-    padded = {}
-    for i in range(n):
-        padded.setdefault(kb[i].tobytes(), []).append(i)
-    paired = [i for v in padded.values() if len(v) > 1 for i in v]
-    idx = np.concatenate([pick, np.asarray(paired, np.int64)])
-    qb = torch.from_numpy(kb[idx]).to(device)
-    ql = torch.from_numpy(kl[idx]).to(device)
-    qb[:n_q:3, -1] ^= 0xA5
-    return tree, qb, ql, twins
 
 
 # ------------------------------------------------------------ stale parents
@@ -1228,28 +1150,30 @@ def timing(tree, qb, ql, runs: int):
     emit({"metric": "bound_ms", "value": b_ms, "bound_by": b_by,
           "bound_bytes": b_bytes})
     emit({"metric": "bound_share", "value": b_ms / k_ms})
-    emit({"metric": "k1_design", **k1_design(tree)})
+    for L in (tree.config.key_width, URL_WIDTH):
+        emit({"metric": "k1_design", **k1_design(tree.config.ns, L)})
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def k1_design(tree) -> dict:
-    """What the K1 instantiation timed here (stats off, sibling check and
-    probe on, the tree's ns and key width) asks of the card: registers and local memory
-    (spills) a thread, shared memory and threads a block, blocks a SM
-    (``cudaFuncGetAttributes``, ``cudaOccupancyMaxActiveBlocksPer
-    Multiprocessor``)."""
+def k1_design(ns: int, L: int) -> dict:
+    """What the K1 instantiation a lookup at ``ns`` and key width ``L``
+    takes (stats off, sibling check and probe on) asks of the card:
+    registers and local memory (spills) a thread, shared memory and threads
+    a block, blocks a SM (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). The kernels have a
+    build for each number of 32-byte stripes a key takes (``stripes_for``
+    in ``csrc/cmp.cuh``): the timed ycsb width takes one, ``URL_WIDTH``
+    three."""
     from repro_torch.kernels.fused_descent import cuda
-    ns, L = tree.config.ns, tree.config.key_width
     return dict(ns=ns, key_width=L, stats=False, sibling=True, probe=True,
                 **cuda.kernel_attributes(ns, L, stats=False, sibling=True,
                                          probe=True))
 
 
-def k2_design(tree) -> dict:
-    """The same for the K2 instantiation timed here (stats off, the tree's
-    ns and key width)."""
+def k2_design(ns: int, L: int) -> dict:
+    """The same for the K2 instantiation a scan at ``ns`` and key width
+    ``L`` takes (stats off)."""
     from repro_torch.kernels.fused_scan import cuda
-    ns, L = tree.config.ns, tree.config.key_width
     return dict(ns=ns, key_width=L, stats=False,
                 **cuda.kernel_attributes(ns, L, stats=False))
 
@@ -1356,7 +1280,8 @@ def scan_timing(clean, tree, qb, ql, max_items: int, runs: int):
     emit({"metric": "scan_bound_ms", "value": b_ms, "bound_by": b_by,
           "bound_bytes": b_bytes, "clean_tree_bound_ms": bc_ms})
     emit({"metric": "scan_bound_share", "value": b_ms / k_ms})
-    emit({"metric": "k2_design", **k2_design(tree)})
+    for L in (tree.config.key_width, URL_WIDTH):
+        emit({"metric": "k2_design", **k2_design(tree.config.ns, L)})
     return dict(ms=k_ms, clean_ms=kc_ms, plain_ms=p_ms, bound_ms=b_ms,
                 bound_by=b_by)
 

@@ -11,9 +11,10 @@
 // trip, and a row can be loaded before it is known to be needed.
 //
 // S, the number of stripes a key holds, is a template parameter: the
-// kernels are built for S = 1 (keys of at most 32 bytes, the YCSB and
-// integer keys) and S = 8 (up to 256 bytes), so a short key costs one
-// register and one load, not eight.
+// kernels are built for S = 1 to 4 (keys of at most 32 S bytes: S = 1 for
+// the YCSB and integer keys, 3 for 72-byte URLs) and S = 8 (up to 256
+// bytes), so a key costs the registers and loads of its width, not of the
+// widest key (PERF.md §6 times the URL build at S = 3 against S = 4 and 8).
 #pragma once
 
 #include <cstdint>
@@ -23,9 +24,10 @@ namespace fbt {
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kMaxStripes = 8;  // keys of at most 256 bytes
 
-// Stripes of a key of width L as the kernels are built: 1 or kMaxStripes.
+// Stripes of a key of width L as the kernels are built: ceil(L / 32) up to
+// 4, else kMaxStripes.
 __host__ __device__ constexpr int stripes_for(int L) {
-  return L <= 32 ? 1 : kMaxStripes;
+  return L <= 128 ? (L + 31) / 32 : kMaxStripes;
 }
 
 // v[k] for a k known only at run time (k < N), by masks: neither an indexed

@@ -27,9 +27,9 @@
 // together. Counted from the code for ycsb-10M (6 levels, 1.84 feature
 // rounds a level, 0.25 suffix compares a lookup): a query waited on ~43
 // dependent loads (~5.8 a level, ~8 for the hop and the probe) and now
-// waits on ~20 (~2.8 a level, 2 after). A key of at most 32 bytes is one
-// stripe (cmp.cuh), so the short-key instantiation carries one register
-// and one load a row where the general one carries eight.
+// waits on ~20 (~2.8 a level, 2 after). A key of at most 32 S bytes is S
+// stripes (S = 1 to 4, else 8; cmp.cuh), so the ycsb instantiation carries
+// one register and one load a row where the widest carries eight.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -42,6 +42,7 @@ namespace fbt {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kMinBlocks64 = 6;  // resident blocks a SM asked for at ns=64
+constexpr int kMinBlocksWide = 5;  // the same for keys over 32 bytes (S > 1)
 
 struct DescentArgs {
   const uint8_t* qb;  // [B, L]
@@ -134,10 +135,11 @@ __device__ __forceinline__ Probe<NS, S> first_candidate(
   return p;
 }
 
-// At ns=64 without counters, ask for kMinBlocks64 resident blocks per SM:
-// the kernel is latency bound, so warps in flight matter more than the
-// registers the compiler would like. At ns=128 a cap makes ptxas spill, so
-// it is not asked for.
+// At ns=64 without counters, ask for kMinBlocks64 resident blocks per SM
+// (kMinBlocksWide for keys over 32 bytes, whose stripes take registers:
+// at 6 blocks their build spills): the kernel is latency bound, so warps
+// in flight matter more than the registers the compiler would like. At
+// ns=128 a cap makes ptxas spill, so it is not asked for.
 //
 // After the descent the leaf's row (high key, link, tags, occupancy, key
 // ids) is one round of loads; the high key's row (the hop check) and the
@@ -148,7 +150,9 @@ __device__ __forceinline__ Probe<NS, S> first_candidate(
 // measured slower at every register cap (PERF.md §6).
 template <int NS, int S, bool STATS, bool SIBLING, bool PROBE>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock,
-                                  (NS == 64 && !STATS) ? kMinBlocks64 : 1)
+                                  (NS == 64 && !STATS)
+                                      ? (S == 1 ? kMinBlocks64 : kMinBlocksWide)
+                                      : 1)
 fused_descent(const DescentArgs a) {
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -242,8 +246,13 @@ const void* kernel_ssp(bool stats, bool sibling, bool probe) {
 
 template <int NS>
 const void* kernel_lssp(int L, bool stats, bool sibling, bool probe) {
-  return stripes_for(L) == 1 ? kernel_ssp<NS, 1>(stats, sibling, probe)
-                             : kernel_ssp<NS, kMaxStripes>(stats, sibling, probe);
+  switch (stripes_for(L)) {
+    case 1: return kernel_ssp<NS, 1>(stats, sibling, probe);
+    case 2: return kernel_ssp<NS, 2>(stats, sibling, probe);
+    case 3: return kernel_ssp<NS, 3>(stats, sibling, probe);
+    case 4: return kernel_ssp<NS, 4>(stats, sibling, probe);
+    default: return kernel_ssp<NS, kMaxStripes>(stats, sibling, probe);
+  }
 }
 
 inline const void* kernel_for(int ns, int L, bool stats, bool sibling,

@@ -53,7 +53,8 @@
 //   payload; a rank is the output column itself. Tree keys are unique, so
 //   the ranks are the stable sort's order;
 // - hop 0 filters key >= query over the same words (the query's words
-//   packed once into shared memory, read as a broadcast);
+//   packed once into shared memory, read as a broadcast), through the
+//   rank's own compare (words_less);
 // - a pair goes straight to out[b, emitted + rank]: destinations in a row
 //   are unique, so the TPU kernel's one-hot _merge_emit is not needed;
 // - read-only: no sorted leaf is written back and leaf_ordered is never
@@ -224,20 +225,28 @@ __device__ __forceinline__ int common_words(const uint64_t* words,
   return w;
 }
 
-// Staged key i < staged key j (compact indices): word by word over words
-// w0 .. W-1 (those before w0 are common to all), then the length
-// tie-break. The loop bound is the same for every lane.
+// Key x < key y, each given as packed words at a stride (a staged key at
+// NS, the query's words at 1) and a length: word by word over words
+// w0 .. W-1 (those before w0 are equal), then the length tie-break. The
+// loop bound is the same for every lane. The one compare of the scan.
+__device__ __forceinline__ bool words_less(const uint64_t* x, int xs, int xl,
+                                           const uint64_t* y, int ys, int yl,
+                                           int w0, int W) {
+  bool lt = false, eq = true;
+  for (int w = w0; w < W; ++w) {
+    const uint64_t a = x[w * xs], b = y[w * ys];
+    lt = lt || (eq && a < b);
+    eq = eq && a == b;
+  }
+  return lt || (eq && xl < yl);
+}
+
+// Staged key i < staged key j (compact indices).
 template <int NS>
 __device__ __forceinline__ bool key_less(const uint64_t* words,
                                          const int32_t* lens, int i, int j,
                                          int w0, int W) {
-  bool lt = false, eq = true;
-  for (int w = w0; w < W; ++w) {
-    const uint64_t a = words[w * NS + i], b = words[w * NS + j];
-    lt = lt || (eq && a < b);
-    eq = eq && a == b;
-  }
-  return lt || (eq && lens[i] < lens[j]);
+  return words_less(words + i, NS, lens[i], words + j, NS, lens[j], w0, W);
 }
 
 // rank[k] = number of emitted keys below this lane's emitted key k.
@@ -353,17 +362,9 @@ fused_scan(const ScanArgs a) {
     }
     if (hop == 0) {  // emit key >= query
 #pragma unroll
-      for (int k = 0; k < kPerLane; ++k) {
-        bool lt = false, eq = true;
-        for (int w = 0; w < W; ++w) {
-          const uint64_t kw = words[w * NS + c[k]];
-          const uint64_t qv = qw[w];  // broadcast
-          lt = lt || (eq && kw < qv);
-          eq = eq && kw == qv;
-        }
-        lt = lt || (eq && len[k] < qlen);
-        em[k] = r.occ[k] && !lt;
-      }
+      for (int k = 0; k < kPerLane; ++k)  // qw: a broadcast
+        em[k] = r.occ[k] &&
+                !words_less(words + c[k], NS, len[k], qw, 1, qlen, 0, W);
     }
     const SlotMask<NS> emm = ballot_mask<NS>(em);
     int n_emit = 0;
@@ -416,8 +417,13 @@ const void* kernel_s(bool stats) {
 
 template <int NS>
 const void* kernel_ls(int L, bool stats) {
-  return stripes_for(L) == 1 ? kernel_s<NS, 1>(stats)
-                             : kernel_s<NS, kMaxStripes>(stats);
+  switch (stripes_for(L)) {
+    case 1: return kernel_s<NS, 1>(stats);
+    case 2: return kernel_s<NS, 2>(stats);
+    case 3: return kernel_s<NS, 3>(stats);
+    case 4: return kernel_s<NS, 4>(stats);
+    default: return kernel_s<NS, kMaxStripes>(stats);
+  }
 }
 
 inline const void* kernel_for(int ns, int L, bool stats) {

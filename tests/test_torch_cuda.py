@@ -27,8 +27,9 @@ from repro_torch.kernels.leaf_probe import ops as k4
 
 from chip_smoke import (K5_BOUND, K5_CASES, int_keys, k3_vs_plain,
                         k4_vs_plain, k5_sweep, k5_vs_plain, kernel_vs_plain,
-                        scan_kernel_vs_plain, stale_parents, tie_scan_tree,
+                        scan_kernel_vs_plain, stale_parents,
                         tree_diffs, tree_to, url_keys, ycsb_keys)
+from test_torch_tie_keys import tie_scan_tree
 
 GEN = {"ycsb": ycsb_keys, "url": url_keys, "int": int_keys}
 
@@ -101,7 +102,7 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 def _scan_tree(kind, ns, dirty, n=4000, seed=5):
     """A tree on the card, dirtied by the port's own inserts (fit and split
     paths) when asked, and scan starts on and between its keys. ``tieW`` is
-    ``chip_smoke.tie_keys`` at width W (twins that only the length
+    ``test_torch_tie_keys.tie_keys`` at width W (twins that only the length
     tie-break orders, ties on the first 4, 8 and 16 bytes, 0x00/0xFF at
     word boundaries)."""
     if kind.startswith("tie"):
@@ -128,7 +129,9 @@ def _scan_tree(kind, ns, dirty, n=4000, seed=5):
     return tree, qb, ql
 
 
-TIE_CASES = tuple((f"tie{w}", ns) for w in (21, 24, 28, 37)
+# widths no multiple of 8 and one that is, over every stripe build of K1
+# and K2 (csrc/cmp.cuh::stripes_for: S = 1, 2, 4 and 8; url is S = 3)
+TIE_CASES = tuple((f"tie{w}", ns) for w in (21, 24, 28, 37, 100, 160)
                   for ns in (64, 128))
 
 
@@ -169,7 +172,7 @@ def test_cuda_range_scan_is_one_launch(cuda_device):
 K2_MUTANTS = {
     # twins (equal padded bytes) compare equal: two pairs take one column
     "length_tie_break_dropped": (
-        "return lt || (eq && lens[i] < lens[j]);", "return lt;"),
+        "return lt || (eq && xl < yl);", "return lt;"),
     # words compare from their last byte
     "word_little_endian": ("  return bswap64(x);", "  return x;"),
     # the last word of a width that is no multiple of 8 takes the next
@@ -208,6 +211,18 @@ def tie_trees():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     return {(kind, ns): _scan_tree(kind, ns, dirty=True)
             for kind, ns in TIE_CASES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,ns", TIE_CASES)
+def test_cuda_kernel_matches_plain_on_tie_keys(cuda_device, tie_trees, kind,
+                                               ns):
+    """K1 on the dirtied tie-key trees, one for each stripe build, equals
+    its plain version bit for bit (stats on and off, sibling check on and
+    off)."""
+    tree, qb, ql = tie_trees[(kind, ns)]
+    assert kernel_vs_plain(tree, qb, ql) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -40,8 +40,8 @@ from repro_torch.kernels.fused_scan import ops as p_ops
 from repro_torch.kernels.fused_scan.ref import fused_range_scan_ref
 
 from benchmarks.common import make_dataset
-from chip_smoke import tie_scan_tree
 from test_torch_mutations import BATCH, KW, config, to_port
+from test_torch_tie_keys import tie_scan_tree
 
 OUT = ("kid", "val", "emitted", "rearranged")
 PORT_ENGINES = (("torch", "tuple"), ("torch", "stacked"), ("fused", None))
@@ -278,7 +278,7 @@ def to_reference(pt):
 
 @pytest.mark.parametrize("ns,width", ((64, 21), (128, 28)))
 def test_scan_tie_keys_match_reference_fused(ns, width):
-    """Keys that packed words can get wrong (``chip_smoke.tie_keys``: twins
+    """Keys that packed words can get wrong (``tie_keys``: twins
     with equal padded bytes and lengths that differ, ties on the first 4, 8
     and 16 bytes, 0x00/0xFF at word boundaries, a width that is no multiple
     of 8), dirtied by the port's own inserts: the port's scan (the plain

@@ -6,24 +6,32 @@ Each version is a directory holding the kernels' CUDA sources
 (``fused_descent.cu``, ``fused_scan.cu``, ``feature_branch.cu`` and the
 headers they include), given as ``name=dir`` (default: the checkout's
 ``src/repro_torch/csrc``); keep scratch versions under ``build/``. The
-workload is ``chip_smoke.py``'s: 10,000,000 YCSB-like keys (ns 64, fs 4,
-6 levels), one lookup batch of 65,536 queries (10% absent), and YCSB-E's
-scan batch (65,536 zipf(0.99) starts, ``max_items`` 50) on the clean tree
-and on the tree after 16 rounds of 3,449 inserts (``run_phase`` and
-``run_ycsb_e`` build them with the checkout's kernels and check them).
+workload is ``chip_smoke.py``'s, at its sizes (seed 0):
+
+- ycsb: 10,000,000 YCSB-like keys of 24 bytes (ns 64, fs 4, 6 levels),
+  one lookup batch of 65,536 queries (10% absent), and YCSB-E's scan
+  batch (65,536 zipf(0.99) starts, ``max_items`` 50) on the clean tree and
+  on the tree after 16 rounds of 3,449 inserts (``run_phase`` and
+  ``run_ycsb_e`` build them with the checkout's kernels and check them);
+- url: 1,000,000 URL keys of up to 72 bytes (ns 64), the kernels' build for
+  keys of three 32-byte stripes (``stripes_for`` in ``csrc/cmp.cuh``;
+  ycsb's takes one): one lookup
+  batch of 65,536 queries, and a scan batch (65,536 zipf(0.99) starts, a
+  third with their last byte flipped, ``max_items`` 50) on the clean tree
+  and on the tree after 16 rounds of 3,449 fresh URL keys inserted.
 
 One JSON line each:
 
-- per version: what each kernel's instantiation asks of the card
-  (registers, local memory, shared memory, blocks a SM; null where the
-  version's source has no ``fbt_*_attrs`` entry), and its checks: K1 and
-  K2 against their plain versions on the batches above (stats on and off),
-  as the largest absolute difference, which must be 0;
+- per version: what each kernel's instantiation asks of the card at both
+  widths (registers, local memory, shared memory, blocks a SM; null where
+  the version's source has no ``fbt_*_attrs`` entry), and its checks: K1
+  and K2 against their plain versions on the batches above (stats on and
+  off), as the largest absolute difference, which must be 0;
 - per turn, in the order a, b, ..., b, a: K1 on the lookup batch, K2 on
-  the dirtied and on the clean tree and K3 summed over the levels of the
-  lookup batch (CUDA events, median of ``--runs``, stats off), and
-  ``lookup_batch`` and ``range_scan`` end to end (engine ``"fused"``, host
-  clock, synchronized, median of ``--runs``).
+  the dirtied and on the clean tree (ycsb, then ``url_``), K3 summed over
+  the levels of the ycsb lookup batch (CUDA events, median of 25, stats
+  off), and ycsb's ``lookup_batch`` and ``range_scan`` end to end (engine
+  ``"fused"``, host clock, synchronized, median of 25).
 
 Run on a machine with a card, from the checkout's root:
 ``python3 tools/tree_bench.py [name=dir ...]``.
@@ -40,10 +48,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 FILES = {"k1": "fused_descent.cu", "k2": "fused_scan.cu",
          "k3": "feature_branch.cu"}
+SEED, YCSB_KEYS, URL_KEYS, BATCH, E_ROUNDS, RUNS = (0, 10_000_000, 1_000_000,
+                                                    65_536, 16, 25)
+N_INS, MAX_ITEMS = 3449, 50
 
 
 def _host_ms(fn, runs: int) -> float:
@@ -60,11 +72,6 @@ def _host_ms(fn, runs: int) -> float:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("versions", nargs="*", metavar="name=dir")
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--ycsb-keys", type=int, default=10_000_000)
-    p.add_argument("--batch", type=int, default=65_536)
-    p.add_argument("--runs", type=int, default=25)
-    p.add_argument("--e-rounds", type=int, default=16)
     p.add_argument("--unchecked", nargs="*", default=[], metavar="name",
                    help="versions timed but not checked (diagnostic "
                         "versions that are wrong by design)")
@@ -105,18 +112,19 @@ def main(argv=None) -> int:
             return None
         return nvcc.attributes(getattr(lib, name), kernel, *a)
 
-    kb, kl = cs.ycsb_keys(args.ycsb_keys, args.seed)
+    kb, kl = cs.ycsb_keys(YCSB_KEYS, SEED)
     use(nvcc.CSRC)
-    tree, (qb, ql), _ = cs.run_phase("ycsb", kb, kl, ns=64, batch=args.batch,
-                                     seed=args.seed, device="cuda")
+    tree, (qb, ql), _ = cs.run_phase("ycsb", kb, kl, ns=64, batch=BATCH,
+                                     seed=SEED, device="cuda")
     clean, dirty, _, (sqb, sql, _), _, _ = cs.run_ycsb_e(
-        tree, kb, kl, seed=args.seed, device="cuda", rounds=args.e_rounds,
-        batch=args.batch)
+        tree, kb, kl, seed=SEED, device="cuda", rounds=E_ROUNDS, batch=BATCH,
+        max_items=MAX_ITEMS)
     del kb, kl
     L = qb.shape[1]
     leaf, path, _ = TraversalEngine("torch").traverse(tree, qb, ql)
     k3_inputs = [level_inputs(lv, nid.long(), qb)
                  for lv, nid in zip(tree.arrays.levels, path)]
+    url, (uqb, uql), (uclean, udirty, usqb, usql) = url_trees(cs)
 
     for name, d in versions.items():
         use(d)
@@ -125,14 +133,19 @@ def main(argv=None) -> int:
                               "checked": False}), flush=True)
             continue
         err = max(cs.kernel_vs_plain(tree, qb, ql),
-                  cs.kernel_vs_plain(dirty, sqb, sql))
-        serr = max(cs.scan_kernel_vs_plain(clean, sqb, sql, 50),
-                   cs.scan_kernel_vs_plain(dirty, sqb, sql, 50))
+                  cs.kernel_vs_plain(dirty, sqb, sql),
+                  cs.kernel_vs_plain(url, uqb, uql),
+                  cs.kernel_vs_plain(udirty, usqb, usql))
+        serr = max(cs.scan_kernel_vs_plain(t, q, n, MAX_ITEMS)
+                   for t, q, n in ((clean, sqb, sql), (dirty, sqb, sql),
+                                   (uclean, usqb, usql), (udirty, usqb, usql)))
         k3err = max(cs.k3_vs_plain(*inp) for inp in k3_inputs)
         print(json.dumps({
             "version": name, "dir": str(d),
             "k1_attrs": attrs("k1", 64, L, 0, 1, 1),
             "k2_attrs": attrs("k2", 64, L, 0),
+            "url_k1_attrs": attrs("k1", 64, cs.URL_WIDTH, 0, 1, 1),
+            "url_k2_attrs": attrs("k2", 64, cs.URL_WIDTH, 0),
             "k1_vs_plain_max_abs_err": err, "k2_vs_plain_max_abs_err": serr,
             "k3_vs_plain_max_abs_err": k3err}), flush=True)
 
@@ -140,26 +153,74 @@ def main(argv=None) -> int:
     order = list(versions) + list(versions)[::-1]
     for turn, name in enumerate(order):
         use(versions[name])
-        kern1 = lambda: k1.fused_traverse_probe(tree, qb, ql,
-                                                collect_stats=False)
-        scan = lambda t: k2.fused_range_scan(t, sqb, sql, max_items=50,
-                                             collect_stats=False)
+        kern1 = lambda t, q, n: k1.fused_traverse_probe(t, q, n,
+                                                        collect_stats=False)
+        scan = lambda t, q, n: k2.fused_range_scan(
+            t, q, n, max_items=MAX_ITEMS, collect_stats=False)
         kern3 = lambda: [k3.feature_branch(*inp, collect_stats=False)
                          for inp in k3_inputs]
+        timed = {"k1_ms": (kern1, tree, qb, ql),
+                 "k2_dirty_ms": (scan, dirty, sqb, sql),
+                 "k2_clean_ms": (scan, clean, sqb, sql),
+                 "url_k1_ms": (kern1, url, uqb, uql),
+                 "url_k2_dirty_ms": (scan, udirty, usqb, usql),
+                 "url_k2_clean_ms": (scan, uclean, usqb, usql)}
         for _ in range(3):
-            kern1(), scan(dirty), scan(clean), kern3()
-        row = {"turn": turn, "version": name,
-               "k1_ms": cs._event_ms(kern1, args.runs)[0],
-               "k2_dirty_ms": cs._event_ms(lambda: scan(dirty), args.runs)[0],
-               "k2_clean_ms": cs._event_ms(lambda: scan(clean), args.runs)[0],
-               "k3_descent_ms": cs._event_ms(kern3, args.runs)[0],
-               "lookup_batch_ms": _host_ms(lambda: batch_ops.lookup_batch(
-                   tree, qb, ql, engine=eng), args.runs),
-               "range_scan_ms": _host_ms(lambda: batch_ops.range_scan(
-                   dirty, sqb, sql, max_items=50, engine=eng), args.runs)}
+            kern3()
+            for fn, *a in timed.values():
+                fn(*a)
+        row = {"turn": turn, "version": name}
+        for key, (fn, *a) in timed.items():
+            row[key] = cs._event_ms(lambda: fn(*a), RUNS)[0]
+        row.update({
+            "k3_descent_ms": cs._event_ms(kern3, RUNS)[0],
+            "lookup_batch_ms": _host_ms(lambda: batch_ops.lookup_batch(
+                tree, qb, ql, engine=eng), RUNS),
+            "range_scan_ms": _host_ms(lambda: batch_ops.range_scan(
+                dirty, sqb, sql, max_items=MAX_ITEMS, engine=eng), RUNS)})
         print(json.dumps(row), flush=True)
     return 0
 
+
+def url_trees(cs):
+    """The url tree (built and swept by ``chip_smoke.run_phase``), its
+    lookup batch, and the scan trees and batch: the clean tree, the tree
+    after ``E_ROUNDS`` rounds of ``N_INS`` fresh URL keys inserted through
+    the ``"fused"`` engine, and ``BATCH`` zipf(0.99) starts over every key,
+    a third with their last byte flipped (starts between keys)."""
+    from repro_torch.core import batch_ops
+    from repro_torch.core.traverse import TraversalEngine
+    kb, kl = cs.url_keys(URL_KEYS, SEED)
+    tree, lookups, _ = cs.run_phase("url", kb, kl, ns=64, batch=BATCH,
+                                    seed=SEED, device="cuda")
+    need = E_ROUNDS * N_INS
+    fresh, fl = cs.url_keys(2 * need, SEED + 5)
+    new = ~np.isin(fresh.view(f"S{cs.URL_WIDTH}").ravel(),
+                   kb.view(f"S{cs.URL_WIDTH}").ravel())
+    fresh, fl = fresh[new][:need], fl[new][:need]
+    eng = TraversalEngine("fused")
+    dirty = tree
+    for r in range(E_ROUNDS):
+        sl = slice(r * N_INS, (r + 1) * N_INS)
+        dirty, _, _ = batch_ops.insert_batch(
+            dirty, fresh[sl], fl[sl],
+            np.arange(URL_KEYS + r * N_INS, URL_KEYS + (r + 1) * N_INS,
+                      dtype=np.int32), engine=eng)
+    a = dirty.arrays
+    nl = int(a.leaf_count)
+    print(json.dumps({"phase": "url-scan-trees", "inserted": need,
+                      "leaves": nl, "dirty_leaf_share": float(
+                          (~a.leaf_ordered[:nl]).float().mean())}), flush=True)
+    all_kb = np.concatenate([kb, fresh])
+    all_kl = np.concatenate([kl, fl])
+    rng = np.random.default_rng(SEED + 2)
+    idx = cs.zipf_indices(rng, all_kb.shape[0], BATCH)
+    qb, ql = all_kb[idx].copy(), all_kl[idx]
+    flip = np.nonzero(rng.random(BATCH) < 1 / 3)[0]
+    qb[flip, ql[flip] - 1] ^= 0x01
+    scans = (tree, dirty, torch.from_numpy(qb).cuda(),
+             torch.from_numpy(ql).cuda())
+    return tree, lookups, scans
 
 if __name__ == "__main__":
     sys.exit(main())
