@@ -61,7 +61,8 @@ launch of the flash-attention kernel K5):
     the plain version inside the appended range;
 11. timing with CUDA events: K1 on the main lookup batch; K2 on the last
     scan batch of the dirtied and of the clean tree; K3 at every level and
-    K4 on the factor batch of the rebuilt tree; the plain versions;
+    K4 on the factor batch of the rebuilt tree, warm and with the L2
+    flushed, and their design lines; the plain versions;
     ``lookup_batch`` (engines ``"fused"`` and ``"cuda"``), ``range_scan``
     and ``insert_batch`` end to end (host clock); each kernel's bound;
 12. ``serve``: the port's ``Engine`` on ``get_config("yi-9b")`` (48 layers,
@@ -964,6 +965,16 @@ def engine_parity(tree, qb, ql) -> int:
     return worst
 
 
+def factor_batch(kb, kl, vals, *, seed, device, batch=65_536):
+    """The factor phase's queries: ``batch`` keys drawn zipf(0.99) over
+    ``kb`` (all present), with their lengths and values, on ``device``."""
+    rng = np.random.default_rng(seed + 7)
+    idx = torch.from_numpy(zipf_indices(rng, kb.shape[0], batch)).to(device)
+    return (torch.from_numpy(kb).to(device)[idx],
+            torch.from_numpy(kl).to(device)[idx],
+            torch.from_numpy(vals).to(device)[idx])
+
+
 def run_factor(name, trees, kb, kl, vals, *, seed, device, batch=65_536,
                stale=False):
     """The five steps of the paper's Fig. 12(a) over the trees of ``trees``
@@ -984,12 +995,9 @@ def run_factor(name, trees, kb, kl, vals, *, seed, device, batch=65_536,
     from repro_torch.kernels.feature_branch import ops as k3
     from repro_torch.kernels.leaf_probe import ops as k4
 
-    rng = np.random.default_rng(seed + 7)
     n = kb.shape[0]
-    idx = torch.from_numpy(zipf_indices(rng, n, batch)).to(device)
-    qb = torch.from_numpy(kb).to(device)[idx]
-    ql = torch.from_numpy(kl).to(device)[idx]
-    want = torch.from_numpy(vals).to(device)[idx]
+    qb, ql, want = factor_batch(kb, kl, vals, seed=seed, device=device,
+                                batch=batch)
     eng = TraversalEngine("cuda", "stacked")
     n_levels = trees[4].config.n_levels
     on_card = torch.device(device).type == "cuda"
@@ -1070,12 +1078,21 @@ def run_factor(name, trees, kb, kl, vals, *, seed, device, batch=65_536,
 
 # ------------------------------------------------------------------ timing
 
-def _event_ms(fn, runs: int):
+L2_FLUSH_BYTES = 64 << 20     # more than the H100's 50 MB L2
+
+
+def _event_ms(fn, runs: int, flush: bool = False):
     """Median device time of ``fn`` over ``runs`` runs, with CUDA events.
     A sleep kernel first keeps the card busy while the host enqueues, so the
-    events bracket device work and not the host's launch overhead."""
+    events bracket device work and not the host's launch overhead. With
+    ``flush``, a write of ``L2_FLUSH_BYTES`` before each run evicts the L2,
+    so ``fn`` reads its inputs from device memory."""
     times = []
+    buf = (torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+           if flush else None)
     for _ in range(runs):
+        if flush:
+            buf.zero_()
         torch.cuda._sleep(2_000_000)
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
@@ -1168,6 +1185,24 @@ def k1_design(ns: int, L: int) -> dict:
     return dict(ns=ns, key_width=L, stats=False, sibling=True, probe=True,
                 **cuda.kernel_attributes(ns, L, stats=False, sibling=True,
                                          probe=True))
+
+
+def k3_design(ns: int, fs: int) -> dict:
+    """The same for the K3 instantiation a level at ``ns`` and ``fs`` takes
+    (stats off), with the lanes and queries a warp of its lane groups."""
+    from repro_torch.kernels.feature_branch import cuda
+    lanes = cuda.lanes_per_query(ns)
+    return dict(ns=ns, fs=fs, stats=False, lanes_per_query=lanes,
+                queries_per_warp=32 // lanes,
+                **cuda.kernel_attributes(ns, fs, stats=False))
+
+
+def k4_design(ns: int) -> dict:
+    """The same for the K4 instantiation at ``ns``."""
+    from repro_torch.kernels.leaf_probe import cuda
+    lanes = cuda.lanes_per_query(ns)
+    return dict(ns=ns, lanes_per_query=lanes, queries_per_warp=32 // lanes,
+                **cuda.kernel_attributes(ns))
 
 
 def k2_design(ns: int, L: int) -> dict:
@@ -1288,7 +1323,9 @@ def scan_timing(clean, tree, qb, ql, max_items: int, runs: int):
 
 def level_timing(tree, qb, ql, runs: int):
     """K3 per launch at every level and K4 per launch on one batch of the
-    tree, stats off, beside their plain versions and their bounds; then
+    tree, stats off, warm and with the L2 flushed before each run
+    (``l2_flushed_ms``), beside their plain versions and their bounds, and
+    the design lines of both (``k3_design``, ``k4_design``); then
     ``lookup_batch`` with the "cuda" engine (K3 per level) beside K1's
     ``lookup_batch``, alternating, host clock.
 
@@ -1325,12 +1362,16 @@ def level_timing(tree, qb, ql, runs: int):
             k3ref.feature_compare_rounds(*inp, collect_stats=False)
         k_ms, k_all = _event_ms(
             lambda: k3.feature_branch(*inp, collect_stats=False), runs)
+        kf_ms, _ = _event_ms(
+            lambda: k3.feature_branch(*inp, collect_stats=False), runs,
+            flush=True)
         p_ms, _ = _event_ms(lambda: k3ref.feature_compare_rounds(
             *inp, collect_stats=False), runs)
         nbytes = B * 8 + n_rounds * (ns + 1) + B * 16
         b_ms, b_by = bound(nbytes, 2 * ns * n_rounds)
         row = {"metric": "k3_kernel_ms", "level": lvl, "value": k_ms,
-               "min": min(k_all), "max": max(k_all), "plain_ms": p_ms,
+               "min": min(k_all), "max": max(k_all), "l2_flushed_ms": kf_ms,
+               "plain_ms": p_ms,
                "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
                "rounds_per_query": n_rounds / B,
                "trivial_share": float((inp[2] <= 1).double().mean()),
@@ -1345,14 +1386,18 @@ def level_timing(tree, qb, ql, runs: int):
     for _ in range(3):
         k4.leaf_probe(tags, occ, qtag), k4ref.leaf_probe_ref(tags, occ, qtag)
     k4_ms, k4_all = _event_ms(lambda: k4.leaf_probe(tags, occ, qtag), runs)
+    k4f_ms, _ = _event_ms(lambda: k4.leaf_probe(tags, occ, qtag), runs,
+                          flush=True)
     k4p_ms, _ = _event_ms(lambda: k4ref.leaf_probe_ref(tags, occ, qtag),
                           runs)
     k4_bytes = B * (2 * ns + 1) + B * (ns + 8)
     k4b_ms, k4_by = bound(k4_bytes, 2 * ns * B)
     emit({"metric": "k4_kernel_ms", "value": k4_ms, "min": min(k4_all),
-          "max": max(k4_all), "plain_ms": k4p_ms, "bound_ms": k4b_ms,
-          "bound_by": k4_by, "bound_bytes": k4_bytes, "runs": runs,
-          "batch": B})
+          "max": max(k4_all), "l2_flushed_ms": k4f_ms, "plain_ms": k4p_ms,
+          "bound_ms": k4b_ms, "bound_by": k4_by, "bound_bytes": k4_bytes,
+          "runs": runs, "batch": B})
+    emit({"metric": "k3_design", **k3_design(ns, tree.config.fs)})
+    emit({"metric": "k4_design", **k4_design(ns)})
 
     engines = {"cuda": TraversalEngine("cuda", "stacked", collect_stats=False),
                "fused": TraversalEngine("fused", collect_stats=False)}

@@ -1,23 +1,21 @@
-// Feature-comparison rounds (paper Fig. 6 l.7-19) for one warp and one node.
+// Feature-comparison rounds (paper Fig. 6 l.7-19) for one node and one
+// query.
 //
 // The CUDA twin of repro/kernels/feature_branch/kernel.py::
 // feature_compare_rounds and of its plain torch version
-// repro_torch/kernels/feature_branch/ref.py. It is defined once here
-// (rounds_over) so that every kernel that resolves a level shares it: K3
-// reads each row as its round comes, the descents of K1 and K2 hand it the
-// rows they loaded with the rest of the level.
-//
-// The paper compares 64 anchor bytes with one AVX-512 instruction and reads
-// the result as a 64-bit mask (compare_equal / compare_less + TZCNT). Here a
-// warp plays the vector unit: lane t owns slots t, t+32, ... and two ballots
-// per 32 slots give the equal and less-than masks as 64-bit words; the first
-// set bit (__ffsll) and the popcount (__popcll) are the TZCNT and the count
-// of smaller anchors.
+// repro_torch/kernels/feature_branch/ref.py. The round loop is defined once
+// here (rounds_over) so that every kernel that resolves a level shares
+// it; what differs between kernels is only how many lanes serve a query
+// and so how a round's equal and less-than masks are formed (slots.cuh):
+// ballots over a warp (the descents of K1 and K2, which hand it the rows
+// they loaded with the rest of the level), or byte-SIMD compares gathered
+// by shuffles inside a lane group (K3, which loads a node's block in one
+// trip).
 #pragma once
 
 #include <cstdint>
 
-#include "cmp.cuh"
+#include "slots.cuh"
 
 namespace fbt {
 
@@ -29,48 +27,6 @@ struct RoundsOut {
   int rounds;     // feature rows consumed (0 when STATS is off)
 };
 
-template <int NS>
-struct SlotMask {
-  static constexpr int kWords = NS / 64;
-  unsigned long long w[kWords];
-};
-
-template <int NS>
-__device__ __forceinline__ int mask_first(const SlotMask<NS>& m) {
-#pragma unroll
-  for (int i = 0; i < SlotMask<NS>::kWords; ++i)
-    if (m.w[i]) return 64 * i + __ffsll(static_cast<long long>(m.w[i])) - 1;
-  return NS;
-}
-
-template <int NS>
-__device__ __forceinline__ int mask_last(const SlotMask<NS>& m) {
-#pragma unroll
-  for (int i = SlotMask<NS>::kWords - 1; i >= 0; --i)
-    if (m.w[i]) return 64 * i + 63 - __clzll(static_cast<long long>(m.w[i]));
-  return -1;
-}
-
-// The slots whose lane flag is set (v[k]: slot 32k + lane), by ballots.
-template <int NS>
-__device__ __forceinline__ SlotMask<NS> ballot_mask(const bool (&v)[NS / 32]) {
-  SlotMask<NS> m;
-#pragma unroll
-  for (int i = 0; i < SlotMask<NS>::kWords; ++i)
-    m.w[i] = static_cast<unsigned long long>(__ballot_sync(kFullMask, v[2 * i])) |
-             (static_cast<unsigned long long>(__ballot_sync(kFullMask, v[2 * i + 1]))
-              << 32);
-  return m;
-}
-
-// Clear slot s of the mask.
-template <int NS>
-__device__ __forceinline__ void clear_slot(SlotMask<NS>& m, int s) {
-#pragma unroll
-  for (int i = 0; i < SlotMask<NS>::kWords; ++i)  // no indexed store
-    m.w[i] &= ~(static_cast<unsigned long long>((s >> 6) == i) << (s & 63));
-}
-
 // A feature row as one lane holds it: f[k] is the feature byte of slot
 // 32k + lane.
 template <int NS>
@@ -80,16 +36,42 @@ __device__ __forceinline__ void load_feature_row(
   for (int k = 0; k < NS / 32; ++k) f[k] = row[32 * k + lane];
 }
 
-// The rounds over a node's feature rows: `row_at(fid, f)` puts row fid in
-// f (as load_feature_row) and `q_at(fid)` gives the query's byte for that
-// round. The
-// prefix (pcmp) and trivial-node (knum <= 1) overrides are folded in, in the
-// reference's order, so !resolved is exactly the set billed for the binary
-// search. A caller may hand rows already loaded (the descent loads a
-// level's rows together) or load each as the rounds reach it (K3).
-template <int NS, bool STATS, class RowAt, class QAt>
+// A round's masks for a lane group: `v` is the lane's W bytes of the row
+// (byte k, lowest address first, is slot W j + k; little-endian words), qv
+// the query's byte. Four bytes a compare, then one shuffle a lane of the
+// group (gather_group_masks).
+template <int NS, int W>
+__device__ __forceinline__ void group_row_masks(const uint32_t (&v)[W / 4],
+                                                int qv, unsigned gmask,
+                                                SlotMask<NS>& e,
+                                                SlotMask<NS>& l) {
+  const uint32_t q4 = static_cast<uint32_t>(qv) * 0x01010101u;
+  Packed<W> eb = 0, lb = 0;
+#pragma unroll
+  for (int w = 0; w < W / 4; ++w) {
+    eb |= Packed<W>(gather_hi4(eq_hi(v[w], q4))) << (4 * w);
+    lb |= Packed<W>(gather_hi4(ltu_hi(v[w], q4))) << (4 * w);
+  }
+  gather_group_masks<NS, W>(eb | (lb << W), gmask, e, l);
+}
+
+// The rounds over a node's feature rows, for a query served by G lanes:
+// `row_at(fid, f)` puts the lanes' part of row fid in f and `q_at(fid)`
+// gives the query's byte for that round. The prefix (pcmp) and
+// trivial-node (knum <= 1) overrides are folded in, in the reference's
+// order, so !resolved is exactly the set billed for the binary search. A
+// caller may hand rows already loaded (the descent loads a level's rows
+// together; K3 a node's block) or load them as the rounds reach them.
+// - G = 32, a warp a query (the descents of K1 and K2): f[k] is the byte of
+//   slot 32k + lane (load_feature_row); the masks are ballots.
+// - G < 32, a group of G lanes a query (K3; `gmask` names the group's
+//   lanes): lane j's f holds the W = NS / G bytes of slots [W j, W j + W)
+//   as W / 4 little-endian words; the masks are byte-SIMD compares
+//   gathered by shuffles inside the group (group_row_masks).
+template <int NS, bool STATS, int G = 32, class RowAt, class QAt>
 __device__ __forceinline__ RoundsOut rounds_over(RowAt row_at, QAt q_at,
-                                                 int fs, int knum, int pcmp) {
+                                                 int fs, int knum, int pcmp,
+                                                 unsigned gmask = kFullMask) {
   static_assert(NS % 64 == 0, "NS must be a multiple of 64");
   constexpr int kWords = SlotMask<NS>::kWords;
   RoundsOut out{0, true, 0, 0, 0};
@@ -106,23 +88,41 @@ __device__ __forceinline__ RoundsOut rounds_over(RowAt row_at, QAt q_at,
     eq.w[i] = bits >= 64 ? ~0ull : ((1ull << bits) - 1ull);
   }
   bool resolved = false;
+  // A warp a query: not unrolled, as the compiler leaves this loop without
+  // the pragma (K1's and K2's code is the same either way). A lane group:
+  // unrolled, so a caller's rows in registers are picked by constants when
+  // fs is one (PERF.md §6).
+#pragma unroll (G == 32 ? 1 : 8)
   for (int fid = 0; fid < fs; ++fid) {
     const int qv = q_at(fid);
-    uint32_t f[NS / 32];
-    row_at(fid, f);
     SlotMask<NS> m, less;
+    if constexpr (G == 32) {
+      uint32_t f[NS / 32];
+      row_at(fid, f);
 #pragma unroll
-    for (int i = 0; i < kWords; ++i) {
-      const int f0 = f[2 * i];      // slot 64i + lane
-      const int f1 = f[2 * i + 1];  // slot 64i + 32 + lane
-      const unsigned long long e =
-          static_cast<unsigned long long>(__ballot_sync(kFullMask, f0 == qv)) |
-          (static_cast<unsigned long long>(__ballot_sync(kFullMask, f1 == qv)) << 32);
-      const unsigned long long l =
-          static_cast<unsigned long long>(__ballot_sync(kFullMask, f0 < qv)) |
-          (static_cast<unsigned long long>(__ballot_sync(kFullMask, f1 < qv)) << 32);
-      m.w[i] = e & eq.w[i];
-      less.w[i] = l & eq.w[i];
+      for (int i = 0; i < kWords; ++i) {
+        const int f0 = f[2 * i];      // slot 64i + lane
+        const int f1 = f[2 * i + 1];  // slot 64i + 32 + lane
+        const unsigned long long e =
+            static_cast<unsigned long long>(__ballot_sync(kFullMask, f0 == qv)) |
+            (static_cast<unsigned long long>(__ballot_sync(kFullMask, f1 == qv)) << 32);
+        const unsigned long long l =
+            static_cast<unsigned long long>(__ballot_sync(kFullMask, f0 < qv)) |
+            (static_cast<unsigned long long>(__ballot_sync(kFullMask, f1 < qv)) << 32);
+        m.w[i] = e & eq.w[i];
+        less.w[i] = l & eq.w[i];
+      }
+    } else {
+      constexpr int W = NS / G;
+      uint32_t f[W / 4];
+      row_at(fid, f);
+      SlotMask<NS> e, l;
+      group_row_masks<NS, W>(f, qv, gmask, e, l);
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) {
+        m.w[i] = e.w[i] & eq.w[i];
+        less.w[i] = l.w[i] & eq.w[i];
+      }
     }
     bool none_eq = true;
     int cnt_less = 0;
@@ -145,22 +145,6 @@ __device__ __forceinline__ RoundsOut rounds_over(RowAt row_at, QAt q_at,
   if (pcmp > 0) out.idx = kmax;
   out.resolved = resolved || pcmp != 0;
   return out;
-}
-
-// Rounds over a node's feature block `feats` ([fs, NS] bytes, row = one
-// feature byte of every anchor), each row read as its round comes. The
-// query's byte for round `fid` is q[qbase + fid], or 0 when qbase + fid >=
-// qlim.
-template <int NS, bool STATS>
-__device__ __forceinline__ RoundsOut feature_compare_rounds(
-    const uint8_t* __restrict__ feats, int fs, const uint8_t* __restrict__ q,
-    int qbase, int qlim, int knum, int pcmp, int lane) {
-  return rounds_over<NS, STATS>(
-      [&](int fid, uint32_t (&f)[NS / 32]) {
-        load_feature_row<NS>(feats + fid * NS, lane, f);
-      },
-      [&](int fid) { return qbase + fid < qlim ? int(q[qbase + fid]) : 0; },
-      fs, knum, pcmp);
 }
 
 }  // namespace fbt

@@ -1,6 +1,9 @@
 """Bind the hashtag leaf-filter CUDA kernel (``csrc/leaf_probe.cu``,
 sm_90a) with ``ctypes``; ``kernels/nvcc.py`` builds it at first use.
-Nothing here runs at import time."""
+Nothing here runs at import time.
+
+:func:`check_inputs` holds every check of :func:`launch` but the device, so
+it runs on CPU tensors too."""
 from __future__ import annotations
 
 import ctypes
@@ -8,11 +11,13 @@ from typing import Optional
 
 import torch
 
-from ..nvcc import CSRC, check, load
+from ..nvcc import CSRC, attributes, check, load
 
-__all__ = ["launch", "SOURCE"]
+__all__ = ["launch", "check_inputs", "kernel_attributes", "lanes_per_query",
+           "SOURCE", "ALIGN"]
 
 SOURCE = CSRC / "leaf_probe.cu"
+ALIGN = 16        # bytes: each lane loads and stores 16 slots as one vector
 _FN: Optional[ctypes._CFuncPtr] = None
 
 
@@ -27,17 +32,13 @@ def _fn():
     return _FN
 
 
-def launch(tags: torch.Tensor, occ: torch.Tensor, qtag: torch.Tensor):
-    """Launch the kernel on the current stream of ``tags``'s device.
-
-    ``tags [B, ns] u8``, ``occ [B, ns] bool``, ``qtag [B] u8``, contiguous
-    on one card. Returns ``(cand [B, ns] u8, first [B] int32, count [B]
-    int32)``. Raises on any tensor the kernel does not take and on a failed
-    launch.
-    """
-    dev = tags.device
-    if dev.type != "cuda":
-        raise ValueError("leaf_probe.launch takes CUDA tensors")
+def check_inputs(tags: torch.Tensor, occ: torch.Tensor,
+                 qtag: torch.Tensor) -> None:
+    """Raise on inputs the kernel does not take, wherever they lie: shapes,
+    dtypes, one device, contiguity, ns in (64, 128), and a ``tags`` or
+    ``occ`` whose base is not 16-byte aligned (the kernel loads 16 slots a
+    lane as one vector; a row of ns bytes keeps that alignment, but a view
+    into a larger buffer need not start on it). Nothing is copied."""
     if tags.dim() != 2:
         raise ValueError(f"leaf_probe: tags must be [B, ns], got "
                          f"{tuple(tags.shape)}")
@@ -48,7 +49,27 @@ def launch(tags: torch.Tensor, occ: torch.Tensor, qtag: torch.Tensor):
     for name, t, dt, shape in (("tags", tags, torch.uint8, (B, ns)),
                                ("occ", occ, torch.bool, (B, ns)),
                                ("qtag", qtag, torch.uint8, (B,))):
-        check("leaf_probe", name, t, dt, shape, dev)
+        check("leaf_probe", name, t, dt, shape, tags.device)
+    for name, t in (("tags", tags), ("occ", occ)):
+        if B and t.data_ptr() % ALIGN:
+            raise ValueError(f"leaf_probe: {name} base address "
+                             f"{t.data_ptr():#x} is not {ALIGN}-byte "
+                             f"aligned")
+
+
+def launch(tags: torch.Tensor, occ: torch.Tensor, qtag: torch.Tensor):
+    """Launch the kernel on the current stream of ``tags``'s device.
+
+    ``tags [B, ns] u8``, ``occ [B, ns] bool`` (both 16-byte aligned),
+    ``qtag [B] u8``, contiguous on one card. Returns ``(cand [B, ns] u8,
+    first [B] int32, count [B] int32)``. Raises on any tensor the kernel
+    does not take (:func:`check_inputs`) and on a failed launch.
+    """
+    dev = tags.device
+    if dev.type != "cuda":
+        raise ValueError("leaf_probe.launch takes CUDA tensors")
+    check_inputs(tags, occ, qtag)
+    B, ns = tags.shape
     cand = torch.empty((B, ns), dtype=torch.uint8, device=dev)
     first = torch.empty((B,), dtype=torch.int32, device=dev)
     count = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -64,3 +85,19 @@ def launch(tags: torch.Tensor, occ: torch.Tensor, qtag: torch.Tensor):
         raise RuntimeError(f"leaf_probe: kernel launch failed with CUDA "
                            f"error {err}")
     return cand, first, count
+
+
+def lanes_per_query(ns: int) -> int:
+    """Lanes of the kernel's group for one query at ``ns`` (32 / lanes
+    queries a warp)."""
+    fn = load(SOURCE).fbt_leaf_probe_lanes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(ns)
+
+
+def kernel_attributes(ns: int) -> dict:
+    """What the instantiation a launch at ``ns`` takes asks of the current
+    card: registers and local memory (spills) a thread, static and dynamic
+    shared memory and threads a block, and the blocks that fit on one
+    SM."""
+    return attributes(load(SOURCE).fbt_leaf_probe_attrs, "leaf_probe", ns)

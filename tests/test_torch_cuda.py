@@ -29,6 +29,7 @@ from chip_smoke import (K5_BOUND, K5_CASES, int_keys, k3_vs_plain,
                         k4_vs_plain, k5_sweep, k5_vs_plain, kernel_vs_plain,
                         scan_kernel_vs_plain, stale_parents,
                         tree_diffs, tree_to, url_keys, ycsb_keys)
+from test_torch_level_edges import K3_SHAPES, k3_edge_inputs, k4_edge_inputs
 from test_torch_tie_keys import tie_scan_tree
 
 GEN = {"ycsb": ycsb_keys, "url": url_keys, "int": int_keys}
@@ -293,11 +294,12 @@ def test_cuda_insert_matches_cpu(cuda_device, ns):
             assert torch.equal(getattr(x, f).cpu(), getattr(y, f)), f
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("ns,fs", ((64, 4), (128, 2), (128, 8)))
-def test_cuda_feature_branch_matches_plain(cuda_device, ns, fs):
-    """K3 on random rows: trivial nodes (knum 0 and 1), full nodes, both
-    prefix overrides, skewed bytes so that runs survive several rounds."""
+def _k3_cases(ns, fs, device="cuda"):
+    """K3's card inputs at (ns, fs): random rows (trivial nodes, full
+    nodes, both prefix overrides, skewed bytes so that runs survive
+    several rounds) followed by ``k3_edge_inputs`` (knum around 32 and 64,
+    runs ending at word boundaries, runs that survive to the last round);
+    B = 3,301, no multiple of a block's queries."""
     rng = np.random.default_rng(ns + fs)
     B = 3001
     feats = np.sort(rng.integers(0, 6, size=(B, fs, ns), dtype=np.uint8), -1)
@@ -305,31 +307,168 @@ def test_cuda_feature_branch_matches_plain(cuda_device, ns, fs):
     knum = rng.integers(0, ns + 1, size=B, dtype=np.int32)
     knum[:300] = rng.choice([0, 1, ns], size=300)
     pcmp = rng.choice(np.array([-1, 0, 0, 1], np.int32), size=B)
-    args = [torch.from_numpy(x).cuda() for x in (feats, qfeat, knum, pcmp)]
+    edges = k3_edge_inputs(ns * fs, 300, fs, ns)
+    return [torch.from_numpy(np.concatenate([x, e])).to(device)
+            for x, e in zip((feats, qfeat, knum, pcmp), edges)]
+
+
+def _k4_cases(ns, device="cuda"):
+    """K4's card inputs at ns: random rows (the first five with no slot
+    occupied) followed by ``k4_edge_inputs`` (lone candidates in slots 0,
+    31, 32, 63, 64 and 127, pairs across the word boundaries, none, all);
+    B = 2,349."""
+    rng = np.random.default_rng(ns)
+    B = 2049
+    tags = rng.integers(0, 3, size=(B, ns), dtype=np.uint8)
+    occ = rng.random((B, ns)) < 0.6
+    occ[:5] = False
+    qtag = rng.integers(0, 4, size=B, dtype=np.uint8)
+    edges = k4_edge_inputs(ns + 7, 300, ns)
+    return [torch.from_numpy(np.concatenate([x, e])).to(device)
+            for x, e in zip((tags, occ, qtag), edges)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fs,ns", K3_SHAPES)
+def test_cuda_feature_branch_matches_plain(cuda_device, ns, fs):
+    """K3 equals its plain version bit for bit, stats on and off, at fs 1,
+    2, 4, 8 (each a build with every row in registers) and 12 (rows past
+    the eighth loaded as their round comes), ns 64 and 128."""
+    args = _k3_cases(ns, fs)
     n0 = k3.LAUNCHES
     assert k3_vs_plain(*args) == 0
     assert k3.LAUNCHES == n0 + 2                # stats on and off
     out = k3.feature_branch(*args)
-    assert int(out[4].max()) > 1                # some runs survive a row
+    assert int(out[4].max()) == fs              # some runs survive every row
     torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ns", (64, 128))
 def test_cuda_leaf_probe_matches_plain(cuda_device, ns):
-    rng = np.random.default_rng(ns)
-    B = 2049
-    tags = torch.from_numpy(rng.integers(0, 3, size=(B, ns),
-                                         dtype=np.uint8)).cuda()
-    occ = torch.from_numpy(rng.random((B, ns)) < 0.6).cuda()
-    occ[:5] = False
-    qtag = torch.from_numpy(rng.integers(0, 4, size=B, dtype=np.uint8)).cuda()
+    tags, occ, qtag = _k4_cases(ns)
     n0 = k4.LAUNCHES
     assert k4_vs_plain(tags, occ, qtag) == 0
     assert k4.LAUNCHES == n0 + 1
     _, first, count = k4.leaf_probe(tags, occ, qtag)
     assert (first[:5] == ns).all() and (count[:5] == 0).all()
+    assert {0, 31, 32, 63} <= set(first.tolist())
     torch.cuda.synchronize()
+
+
+# Faults planted in K3 and K4 (``csrc/feature_branch.cu``,
+# ``csrc/leaf_probe.cu`` and the headers they share), each (file, what the
+# source says, what the mutant says): the cases of
+# test_cuda_feature_branch_matches_plain / test_cuda_leaf_probe_matches_plain
+# must catch every one.
+_GATHER = "const Packed<W> x = __shfl_sync(gmask, mine, k, G);"
+_FIRST = ("  for (int i = 0; i < SlotMask<NS>::kWords; ++i)\n"
+          "    if (m.w[i]) return 64 * i + __ffsll")
+K3_MUTANTS = {
+    # the group's masks take each lane's flags from the next lane
+    "group_lane_shifted_by_one": (
+        "slots.cuh", _GATHER,
+        "const Packed<W> x = __shfl_sync(gmask, mine, (k + 1) % G, G);"),
+    # a lane's flags shifted within 32 slots, not 64: slots 32-63 of each
+    # word land on 0-31
+    "word_shift_mod_32": (
+        "slots.cuh", "<< (s % 64);\n    hi.w", "<< (s % 32);\n    hi.w"),
+    # run_lo and the resolved index from the highest word that has a bit
+    "first_from_highest_word": (
+        "slots.cuh", _FIRST,
+        "  for (int i = SlotMask<NS>::kWords - 1; i >= 0; --i)\n"
+        "    if (m.w[i]) return 64 * i + __ffsll"),
+    # a node of one anchor runs the rounds: its rounds are not zeroed
+    "trivial_rounds_not_zeroed": (
+        "feature_rounds.cuh", "if (knum <= 1) {  // trivial",
+        "if (knum <= 0) {  // trivial"),
+    # the unsigned less-than compares signed bytes (0x80-0xff below 0)
+    "less_than_signed": (
+        "slots.cuh", "return ((~a & b) | (~(a ^ b) & ~d)) & 0x80808080u;",
+        "return ((a & ~b) | (~(a ^ b) & ~d)) & 0x80808080u;"),
+}
+K4_MUTANTS = {
+    "occ_mask_dropped": (
+        "leaf_probe.cu", "eq_hi(tw[w], q4) & nonzero_hi(ow[w])",
+        "eq_hi(tw[w], q4)"),
+    "group_lane_shifted_by_one": K3_MUTANTS["group_lane_shifted_by_one"],
+    "first_from_highest_word": K3_MUTANTS["first_from_highest_word"],
+    # cand holds the compare's 0x80, not 1
+    "cand_byte_not_one": ("leaf_probe.cu", "cw[w] = hi >> 7;", "cw[w] = hi;"),
+}
+
+
+def _build_mutants(kind, mutants, source):
+    """Each mutant's copy of ``csrc`` under ``build/<kind>_mutants/`` (never
+    the checkout's), built with one ``nvcc`` per mutant, all at once.
+    Returns {name: the mutant's copy of ``source``}."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import nvcc
+    out = {}
+    for name, (fname, old, new) in mutants.items():
+        d = nvcc.BUILD_DIR.parent / f"{kind}_mutants" / name
+        d.mkdir(parents=True, exist_ok=True)
+        for f in list(nvcc.CSRC.glob("*.cuh")) + [source]:
+            (d / f.name).write_text(f.read_text())
+        text = (d / fname).read_text()
+        assert text.count(old) == 1, name
+        (d / fname).write_text(text.replace(old, new))
+        out[name] = d / source.name
+    nvcc.build(out.values())
+    return out
+
+
+@pytest.fixture(scope="module")
+def k3_mutants():
+    return _build_mutants("k3", K3_MUTANTS, k3cuda.SOURCE)
+
+
+@pytest.fixture(scope="module")
+def k4_mutants():
+    return _build_mutants("k4", K4_MUTANTS, k4cuda.SOURCE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K3_MUTANTS))
+def test_cuda_k3_cases_reject_planted_faults(cuda_device, k3_mutants, name,
+                                             monkeypatch):
+    """Each mutant of ``K3_MUTANTS``, swapped in for the kernel, differs
+    from the plain version on some (fs, ns) case; the cases it fails are
+    printed."""
+    import json
+    monkeypatch.setattr(k3cuda, "SOURCE", k3_mutants[name])
+    monkeypatch.setattr(k3cuda, "_FN", None)
+    failed = []
+    for fs, ns in K3_SHAPES:
+        try:
+            k3_vs_plain(*_k3_cases(ns, fs))
+        except AssertionError:
+            failed.append(f"fs{fs}-ns{ns}")
+    torch.cuda.synchronize()
+    print(json.dumps({"mutant": name, "cases_failed": failed}))
+    assert failed, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K4_MUTANTS))
+def test_cuda_k4_cases_reject_planted_faults(cuda_device, k4_mutants, name,
+                                             monkeypatch):
+    """Each mutant of ``K4_MUTANTS``, swapped in for the kernel, differs
+    from the plain version at ns 64 or 128; the cases it fails are
+    printed."""
+    import json
+    monkeypatch.setattr(k4cuda, "SOURCE", k4_mutants[name])
+    monkeypatch.setattr(k4cuda, "_FN", None)
+    failed = []
+    for ns in (64, 128):
+        try:
+            k4_vs_plain(*_k4_cases(ns))
+        except AssertionError:
+            failed.append(f"ns{ns}")
+    torch.cuda.synchronize()
+    print(json.dumps({"mutant": name, "cases_failed": failed}))
+    assert failed, name
 
 
 @pytest.mark.cuda

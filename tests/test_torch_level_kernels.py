@@ -29,6 +29,8 @@ from repro_torch.core.traverse import TraversalEngine
 from repro_torch.kernels.feature_branch import ops as k3
 from repro_torch.kernels.leaf_probe import ops as k4
 
+from test_torch_level_edges import K3_SHAPES, k3_edge_inputs, k4_edge_inputs
+
 K3_OUT = ("idx", "resolved", "run_lo", "run_hi", "rounds")
 
 
@@ -70,6 +72,55 @@ def test_feature_branch_matches_reference(B, fs, ns, skew):
     assert not off[4].any()
     # the overrides: trivial nodes resolve at idx 0 with no rounds
     assert (got[1][knum <= 1] == 1).all() and (got[4][knum <= 1] == 0).all()
+
+
+@pytest.mark.parametrize("fs,ns", K3_SHAPES)
+def test_feature_branch_matches_reference_on_edges(fs, ns):
+    """The seams of the kernel's lane groups
+    (``test_torch_level_edges.k3_edge_inputs``: knum around 32 and 64, equal
+    runs ending at word boundaries, runs that survive to the last round),
+    fs up to 12 and a B no multiple of a block's queries: every output,
+    stats on and off, against the Pallas kernel (interpret mode) and the
+    jnp oracle."""
+    B = 101
+    feats, qfeat, knum, pcmp = k3_edge_inputs(fs * 1000 + ns, B, fs, ns)
+    rin = (jnp.asarray(feats), jnp.asarray(qfeat), jnp.asarray(knum[:, None]),
+           jnp.asarray(pcmp[:, None]))
+    pin = tuple(torch.from_numpy(x) for x in (feats, qfeat, knum, pcmp))
+    for stats in (True, False):
+        got = [o.numpy() for o in k3.feature_branch(*pin, collect_stats=stats)]
+        n = 5 if stats else 4            # rounds only with stats
+        wants = (feature_branch_ref(*rin),
+                 r_feature_branch(*rin, use_pallas=True, collect_stats=stats))
+        for want in wants:
+            want = [np.asarray(o)[:, 0] for o in want]
+            for name, g, w in zip(K3_OUT[:n], got, want):
+                assert np.array_equal(g, w), (name, stats)
+        if not stats:
+            assert not got[4].any()
+    assert (got[0][knum <= 1] == 0).all()
+
+
+@pytest.mark.parametrize("ns", (64, 128))
+def test_leaf_probe_matches_reference_on_edges(ns):
+    """Lone candidates in slots 0, 31, 32, 63, 64 and 127, pairs across the
+    word boundaries, no candidate and every slot a candidate
+    (``test_torch_level_edges.k4_edge_inputs``), against the Pallas kernel
+    (interpret mode) and the jnp oracle."""
+    B = 77
+    tags, occ, qtag = k4_edge_inputs(ns + 1, B, ns)
+    rin = (jnp.asarray(tags), jnp.asarray(occ.astype(np.uint8)),
+           jnp.asarray(qtag[:, None]))
+    got = [o.numpy() for o in k4.leaf_probe(torch.from_numpy(tags),
+                                            torch.from_numpy(occ),
+                                            torch.from_numpy(qtag))]
+    for want in (r_leaf_probe_ref(*rin), r_leaf_probe(*rin, use_pallas=True)):
+        want = [np.asarray(w) for w in want]
+        assert np.array_equal(got[0], want[0])
+        for g, w in zip(got[1:], want[1:]):
+            assert np.array_equal(g, w[:, 0])
+    assert set(got[1].tolist()) >= {s for s in (0, 31, 32, 63, 64, 127)
+                                    if s < ns}
 
 
 def _int_tree(n, width, seed):

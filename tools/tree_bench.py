@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Check and time versions of the tree kernels K1 (fused descent), K2
-(fused scan) and K3 (feature branch) on the card, in turns.
+(fused scan), K3 (feature branch) and K4 (leaf probe) on the card, in
+turns.
 
 Each version is a directory holding the kernels' CUDA sources
-(``fused_descent.cu``, ``fused_scan.cu``, ``feature_branch.cu`` and the
-headers they include), given as ``name=dir`` (default: the checkout's
+(``fused_descent.cu``, ``fused_scan.cu``, ``feature_branch.cu``,
+``leaf_probe.cu`` and the headers they include), given as ``name=dir``
+(default: the checkout's
 ``src/repro_torch/csrc``); keep scratch versions under ``build/``. The
 workload is ``chip_smoke.py``'s, at its sizes (seed 0):
 
@@ -18,19 +20,31 @@ workload is ``chip_smoke.py``'s, at its sizes (seed 0):
   ycsb's takes one): one lookup
   batch of 65,536 queries, and a scan batch (65,536 zipf(0.99) starts, a
   third with their last byte flipped, ``max_items`` 50) on the clean tree
-  and on the tree after 16 rounds of 3,449 fresh URL keys inserted.
+  and on the tree after 16 rounds of 3,449 fresh URL keys inserted;
+- rebuilt: the ycsb tree after YCSB-E with 4,096 keys removed, then
+  ``rebuild`` (``run_rebuild``), and the factor phase's batch over it
+  (65,536 zipf(0.99) present keys, ``factor_batch``): the batch
+  ``chip_smoke.py::level_timing`` times K3 and K4 on.
 
 One JSON line each:
 
-- per version: what each kernel's instantiation asks of the card at both
-  widths (registers, local memory, shared memory, blocks a SM; null where
-  the version's source has no ``fbt_*_attrs`` entry), and its checks: K1
-  and K2 against their plain versions on the batches above (stats on and
-  off), as the largest absolute difference, which must be 0;
+- per version: what each kernel's instantiation asks of the card
+  (registers, local memory, shared memory, blocks a SM; K1 and K2 at both
+  widths, K3 at ns 64 and fs 4, K4 at ns 64, with the queries a warp of
+  K3's and K4's lane groups; null where the version's source has no
+  ``fbt_*_attrs`` entry), and its checks: K1 and K2 against their plain
+  versions on the batches above (stats on and off), K3 on every level's
+  inputs of the ycsb lookup batch and of the rebuilt tree's factor batch,
+  K4 on both batches' leaves, as the largest absolute difference, which
+  must be 0;
 - per turn, in the order a, b, ..., b, a: K1 on the lookup batch, K2 on
-  the dirtied and on the clean tree (ycsb, then ``url_``), K3 summed over
-  the levels of the ycsb lookup batch (CUDA events, median of 25, stats
-  off), and ycsb's ``lookup_batch`` and ``range_scan`` end to end (engine
+  the dirtied and on the clean tree (ycsb, then ``url_``), K3 at each
+  level and summed over the levels of the ycsb lookup batch and of the
+  rebuilt tree's factor batch (``factor_``), K4 on the leaves of both
+  (CUDA events, median of 25, stats off; K3 and K4 also with the L2
+  flushed before each run, ``_flushed``), an empty kernel between the
+  same events (``empty_kernel_ms``: the floor under every kernel time),
+  and ycsb's ``lookup_batch`` and ``range_scan`` end to end (engine
   ``"fused"``, host clock, synchronized, median of 25).
 
 Run on a machine with a card, from the checkout's root:
@@ -52,7 +66,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 FILES = {"k1": "fused_descent.cu", "k2": "fused_scan.cu",
-         "k3": "feature_branch.cu"}
+         "k3": "feature_branch.cu", "k4": "leaf_probe.cu"}
 SEED, YCSB_KEYS, URL_KEYS, BATCH, E_ROUNDS, RUNS = (0, 10_000_000, 1_000_000,
                                                     65_536, 16, 25)
 N_INS, MAX_ITEMS = 3449, 50
@@ -82,6 +96,7 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from repro_torch.core import batch_ops
     from repro_torch.core.branch import level_inputs
+    from repro_torch.core.keys import fnv1a_tags
     from repro_torch.core.traverse import TraversalEngine
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.feature_branch import cuda as k3cuda
@@ -90,8 +105,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels.fused_descent import ops as k1
     from repro_torch.kernels.fused_scan import cuda as k2cuda
     from repro_torch.kernels.fused_scan import ops as k2
+    from repro_torch.kernels.leaf_probe import cuda as k4cuda
+    from repro_torch.kernels.leaf_probe import ops as k4
 
-    mods = {"k1": k1cuda, "k2": k2cuda, "k3": k3cuda}
+    mods = {"k1": k1cuda, "k2": k2cuda, "k3": k3cuda, "k4": k4cuda}
     versions = dict(v.split("=", 1) for v in args.versions) or {
         "checkout": str(nvcc.CSRC)}
     versions = {k: Path(v).resolve() for k, v in versions.items()}
@@ -110,20 +127,38 @@ def main(argv=None) -> int:
         name = f"fbt_{FILES[kernel][:-3]}_attrs"
         if not hasattr(lib, name):
             return None
-        return nvcc.attributes(getattr(lib, name), kernel, *a)
+        out = nvcc.attributes(getattr(lib, name), kernel, *a)
+        if kernel in ("k3", "k4"):
+            out["queries_per_warp"] = 32 // mods[kernel].lanes_per_query(a[0])
+        return out
 
     kb, kl = cs.ycsb_keys(YCSB_KEYS, SEED)
     use(nvcc.CSRC)
     tree, (qb, ql), _ = cs.run_phase("ycsb", kb, kl, ns=64, batch=BATCH,
                                      seed=SEED, device="cuda")
-    clean, dirty, _, (sqb, sql, _), _, _ = cs.run_ycsb_e(
+    clean, dirty, _, (sqb, sql, _), inserts, _ = cs.run_ycsb_e(
         tree, kb, kl, seed=SEED, device="cuda", rounds=E_ROUNDS, batch=BATCH,
         max_items=MAX_ITEMS)
-    del kb, kl
+    rebuilt, (lkb, lkl, lval), _ = cs.run_rebuild(
+        dirty, kb, kl, inserts, seed=SEED, device="cuda", batch=BATCH)
+    del kb, kl, inserts
+    fqb, fql, _ = cs.factor_batch(lkb, lkl, lval, seed=SEED, device="cuda",
+                                  batch=BATCH)
+    del lkb, lkl, lval
     L = qb.shape[1]
-    leaf, path, _ = TraversalEngine("torch").traverse(tree, qb, ql)
-    k3_inputs = [level_inputs(lv, nid.long(), qb)
-                 for lv, nid in zip(tree.arrays.levels, path)]
+
+    def level_work(t, q, n):
+        """Every level's K3 inputs and the leaves' K4 inputs of a batch."""
+        leaf, path, _ = TraversalEngine("torch").traverse(t, q, n)
+        lid = leaf.long()
+        return ([level_inputs(lv, nid.long(), q)
+                 for lv, nid in zip(t.arrays.levels, path)],
+                (t.arrays.leaf_tags[lid], t.arrays.leaf_occ[lid],
+                 fnv1a_tags(q, n)))
+
+    k3_inputs, k4_inputs = level_work(tree, qb, ql)
+    fk3_inputs, fk4_inputs = level_work(rebuilt, fqb, fql)
+    fs = tree.config.fs
     url, (uqb, uql), (uclean, udirty, usqb, usql) = url_trees(cs)
 
     for name, d in versions.items():
@@ -139,15 +174,19 @@ def main(argv=None) -> int:
         serr = max(cs.scan_kernel_vs_plain(t, q, n, MAX_ITEMS)
                    for t, q, n in ((clean, sqb, sql), (dirty, sqb, sql),
                                    (uclean, usqb, usql), (udirty, usqb, usql)))
-        k3err = max(cs.k3_vs_plain(*inp) for inp in k3_inputs)
+        k3err = max(cs.k3_vs_plain(*inp) for inp in k3_inputs + fk3_inputs)
+        k4err = max(cs.k4_vs_plain(*k4_inputs), cs.k4_vs_plain(*fk4_inputs))
         print(json.dumps({
             "version": name, "dir": str(d),
             "k1_attrs": attrs("k1", 64, L, 0, 1, 1),
             "k2_attrs": attrs("k2", 64, L, 0),
             "url_k1_attrs": attrs("k1", 64, cs.URL_WIDTH, 0, 1, 1),
             "url_k2_attrs": attrs("k2", 64, cs.URL_WIDTH, 0),
+            "k3_attrs": attrs("k3", 64, fs, 0),
+            "k4_attrs": attrs("k4", 64),
             "k1_vs_plain_max_abs_err": err, "k2_vs_plain_max_abs_err": serr,
-            "k3_vs_plain_max_abs_err": k3err}), flush=True)
+            "k3_vs_plain_max_abs_err": k3err,
+            "k4_vs_plain_max_abs_err": k4err}), flush=True)
 
     eng = TraversalEngine("fused", collect_stats=False)
     order = list(versions) + list(versions)[::-1]
@@ -157,23 +196,39 @@ def main(argv=None) -> int:
                                                         collect_stats=False)
         scan = lambda t, q, n: k2.fused_range_scan(
             t, q, n, max_items=MAX_ITEMS, collect_stats=False)
-        kern3 = lambda: [k3.feature_branch(*inp, collect_stats=False)
-                         for inp in k3_inputs]
+        kern3 = lambda inp: k3.feature_branch(*inp, collect_stats=False)
+        kern4 = lambda inp: k4.leaf_probe(*inp)
         timed = {"k1_ms": (kern1, tree, qb, ql),
                  "k2_dirty_ms": (scan, dirty, sqb, sql),
                  "k2_clean_ms": (scan, clean, sqb, sql),
                  "url_k1_ms": (kern1, url, uqb, uql),
                  "url_k2_dirty_ms": (scan, udirty, usqb, usql),
                  "url_k2_clean_ms": (scan, uclean, usqb, usql)}
+        level = {}
+        for pre, k3s, k4s in (("", k3_inputs, k4_inputs),
+                              ("factor_", fk3_inputs, fk4_inputs)):
+            for lvl, inp in enumerate(k3s):
+                level[f"{pre}k3_l{lvl}_ms"] = (kern3, inp)
+            level[f"{pre}k4_ms"] = (kern4, k4s)
         for _ in range(3):
-            kern3()
             for fn, *a in timed.values():
                 fn(*a)
+            for fn, inp in level.values():
+                fn(inp)
         row = {"turn": turn, "version": name}
         for key, (fn, *a) in timed.items():
             row[key] = cs._event_ms(lambda: fn(*a), RUNS)[0]
+        for key, (fn, inp) in level.items():
+            row[key] = cs._event_ms(lambda: fn(inp), RUNS)[0]
+            row[key[:-3] + "_flushed_ms"] = cs._event_ms(
+                lambda: fn(inp), RUNS, flush=True)[0]
+        for pre, k3s in (("", k3_inputs), ("factor_", fk3_inputs)):
+            for sfx in ("_ms", "_flushed_ms"):
+                row[f"{pre}k3_descent{sfx}"] = sum(
+                    row[f"{pre}k3_l{lvl}{sfx}"] for lvl in range(len(k3s)))
         row.update({
-            "k3_descent_ms": cs._event_ms(kern3, RUNS)[0],
+            "empty_kernel_ms": cs._event_ms(lambda: torch.cuda._sleep(1),
+                                            RUNS)[0],
             "lookup_batch_ms": _host_ms(lambda: batch_ops.lookup_batch(
                 tree, qb, ql, engine=eng), RUNS),
             "range_scan_ms": _host_ms(lambda: batch_ops.range_scan(
