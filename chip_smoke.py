@@ -59,13 +59,29 @@ launch of the flash-attention kernel K5):
     ``int-ns128-append``: 20,480 keys appended above the maximum in batches
     of 4,096 (leaf splits and inner inserts), found, and K2 held against
     the plain version inside the appended range;
-11. timing with CUDA events: K1 on the main lookup batch; K2 on the last
+11. ``shard``: the ycsb keys in 4 range shards on the card (DESIGN.md
+    §7 at ``benchmarks/shard.py``'s largest shard count; every shard
+    planned like the ycsb tree, ``sharded_build(device=True)``), held
+    against the unsharded tree op for op: each shard == the device build of
+    its ``sharded_partition`` run; lookups over every key (K1 launches ==
+    the shards owning lanes); 4 YCSB-E rounds of inserts and 66,560-start
+    scans (1,024 starts just below the split keys, so lanes spill), then
+    update and remove, equal in values, found, emitted and resolved key
+    bytes; K2 on each shard's batch of the last scan (parked all-0xFF
+    lanes) == its plain version; a sticky ``drop_shard`` on shard 2
+    (degraded lookups from the snapshot, exactly its insert lanes failed,
+    scans that need it failed with a correct prefix), then
+    ``TreeVersionManager.rebalance()`` published, healthy, balanced, every
+    live key found, each shard == the device build of its partition of the
+    live set. Times: sharded and unsharded ``lookup_batch`` and
+    ``range_scan`` (host clock), ``rebalance_s``, peak memory;
+12. timing with CUDA events: K1 on the main lookup batch; K2 on the last
     scan batch of the dirtied and of the clean tree; K3 at every level and
     K4 on the factor batch of the rebuilt tree, warm and with the L2
     flushed, and their design lines; the plain versions;
     ``lookup_batch`` (engines ``"fused"`` and ``"cuda"``), ``range_scan``
     and ``insert_batch`` end to end (host clock); each kernel's bound;
-12. ``serve``: the port's ``Engine`` on ``get_config("yi-9b")`` (48 layers,
+13. ``serve``: the port's ``Engine`` on ``get_config("yi-9b")`` (48 layers,
     d_model 4096, GQA 32/4, vocab 64,000; bf16 weights from
     ``lm.init_params`` under a generator seeded with ``--seed``) serving
     16 requests of 3,072 tokens (``launch/serve.py::make_requests``: a
@@ -84,14 +100,19 @@ launch of the flash-attention kernel K5):
     q, k, v of layers 0 and 47 and on ``K5_CASES``. It prints prefill ms
     per request, decode step ms, new tokens/s, request latency p50/p99,
     peak device memory, and K5's time, bound, plain time and
-    ``scaled_dot_product_attention``'s time.
+    ``scaled_dot_product_attention``'s time;
+14. ``shard-cache``: the serve phase's recorded cache calls replayed on a
+    ``PrefixCache(n_shards=4)`` with the ``"fused"`` engine on the card and
+    on the CPU: every answer equal to the other's and to the unsharded
+    cache's, pools, stats and every shard's arrays equal.
 
 Each phase prints one JSON line. The line before the last holds the
 kernels table; the last line is ``{"ok": true, "device": ...}``. The script
 exits non-zero, with no result, when there is no CUDA device, when the
 port's sources are not beside it, or when any check fails. Run:
 ``python3 chip_smoke.py``; ``rehearse_serve()`` runs the serve phase's
-checks on the CPU at SMOKE size.
+checks on the CPU at SMOKE size, ``rehearse_shard()`` the shard phases'
+at 6,000 keys.
 """
 from __future__ import annotations
 
@@ -403,18 +424,6 @@ def run_phase(name, kb, kl, *, ns, batch, seed, device, stale=None):
 
 # ------------------------------------------------------------------- trees
 
-def tree_to(tree, device):
-    """A copy of ``tree`` with every array on ``device``."""
-    from repro_torch.core.fbtree import FBTree, Level
-    a = tree.arrays
-    mv = lambda t: t.to(device, copy=True)
-    flat = {f: mv(getattr(a, f)) for f in a._fields
-            if f not in ("levels", "stacked")}
-    return FBTree(tree.config, a._replace(
-        levels=tuple(Level(*map(mv, lv)) for lv in a.levels),
-        stacked=Level(*map(mv, a.stacked)), **flat))
-
-
 def tree_fields(tree):
     """Every array of the tree by name, levels and stacked copy included."""
     a = tree.arrays
@@ -659,6 +668,7 @@ def run_card_vs_cpu(tree, kb, kl, *, seed, device, n_batches=8, batch=4096):
     keys, so they pile into a few leaves and split them."""
     from repro_torch.core import batch_ops
     from repro_torch.core.traverse import TraversalEngine
+    from repro_torch.shard import place_shard
 
     rng = np.random.default_rng(seed + 4)
     n, L = kb.shape
@@ -708,8 +718,8 @@ def run_card_vs_cpu(tree, kb, kl, *, seed, device, n_batches=8, batch=4096):
         return t, reps, splits, rounds, time.perf_counter() - t0
 
     card, card_reps, splits, rounds, card_s = drive(tree, device)
-    host, host_reps, h_splits, h_rounds, host_s = drive(tree_to(tree, "cpu"),
-                                                        "cpu")
+    host, host_reps, h_splits, h_rounds, host_s = drive(
+        place_shard(tree, "cpu"), "cpu")
     diffs = tree_diffs(card, host)
     rep_diffs = [f"op{i}.{f}" for i, (x, y) in enumerate(zip(card_reps,
                                                              host_reps))
@@ -895,6 +905,512 @@ def run_rebuild(dirty, kb, kl, inserts, *, seed, device, n_remove=4096,
            "tree_bytes": tree_bytes(rebuilt)}
     emit(out)
     return rebuilt, (lkb, lkl, lval), out
+
+
+# ------------------------------------------------------------------- shards
+
+class _Launches:
+    """K1/K2 launches of the sharded ops alone: :meth:`run` calls one op
+    and adds the launches it made; checks and the unsharded twin calls
+    stay outside."""
+
+    def __init__(self):
+        self.k1 = self.k2 = 0
+
+    def run(self, fn, *a, **kw):
+        from repro_torch.kernels.fused_descent import ops as k1
+        from repro_torch.kernels.fused_scan import ops as k2
+        l1, l2 = k1.LAUNCHES, k2.LAUNCHES
+        out = fn(*a, **kw)
+        self.k1 += k1.LAUNCHES - l1
+        self.k2 += k2.LAUNCHES - l2
+        return out
+
+
+class _Recorder:
+    """Record the per-shard ``batch_ops.range_scan`` calls of the sharded
+    scans made inside the ``with`` block: ``(shard tree, starts, lengths,
+    max_items)`` each, the batches K2 is given, parked lanes included."""
+
+    def __enter__(self):
+        from repro_torch.core import batch_ops
+        self.calls, self._orig = [], batch_ops.range_scan
+
+        def rec(tree, qb, ql, max_items=64, engine=None):
+            self.calls.append((tree, qb, ql, max_items))
+            return self._orig(tree, qb, ql, max_items=max_items,
+                              engine=engine)
+        batch_ops.range_scan = rec
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import batch_ops
+        batch_ops.range_scan = self._orig
+
+
+def _host_ms(fn, runs: int, device) -> float:
+    """Median host-clock ms of ``fn`` over ``runs`` runs after 3 warm-ups,
+    each run ending in a synchronize."""
+    times = []
+    for _ in range(runs + 3):
+        _sync(device)
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[3:])
+
+
+def _resolved(tree, kid):
+    """Key bytes and lengths of an unsharded scan's key ids (zero rows past
+    ``emitted``), the form ``ShardedTree.key_rows`` gives."""
+    live = kid >= 0
+    k = torch.clamp(kid, min=0).long()
+    return (torch.where(live[..., None], tree.arrays.key_bytes[k], 0),
+            torch.where(live, tree.arrays.key_lens[k], 0))
+
+
+def _scan_diffs(st, tree, out, want, rows=None):
+    """Names of the outputs where a sharded scan differs from the unsharded
+    one (on ``rows`` only, when given): emitted counts, values, key bytes
+    and lengths of the emitted items."""
+    gk, v, em = out[:3]
+    kid, wv, wem = want[:3]
+    got = (em, v) + st.key_rows(gk)
+    exp = (wem, wv) + _resolved(tree, kid)
+    names = ("emitted", "values", "key_bytes", "key_lens")
+    if rows is not None:
+        got = tuple(x[rows] for x in got)
+        exp = tuple(x[rows] for x in exp)
+    return [n for n, a, b in zip(names, got, exp) if not torch.equal(a, b)]
+
+
+def run_shard(tree, kb, kl, *, seed, device, n_shards=4, batch=65_536,
+              rounds=4, n_ins=3449, max_items=50, n_spill=1024, n_remove=4096,
+              runs=25):
+    """The ``shard`` phase: DESIGN.md §7's range-sharded tree over the
+    ycsb keys (``kb``/``kl``, sorted, as ``ycsb_keys`` makes them) in
+    ``n_shards`` shards on ``device``, each planned like the unsharded
+    ``tree`` (its config), held against ``tree`` op for op:
+
+    1. build: every shard equals ``bulk_build(device=True)`` of its
+       ``sharded_partition`` run, array for array; the router's split keys
+       are the runs' minima;
+    2. lookups over every key in the ycsb phase's batches (10% flipped):
+       values and found equal the unsharded tree's; K1 launches equal the
+       shards owning lanes, summed over the batches;
+    3. YCSB-E: ``rounds`` x (``insert_batch`` of ``n_ins`` fresh keys,
+       ``range_scan`` of ``batch`` zipf(0.99) starts plus ``n_spill``
+       starts just below the split keys), then ``update_batch`` and
+       ``remove_batch``, on both trees: reports, emitted counts, values
+       and resolved key bytes equal, no lane failed, lanes spilled; K2
+       launches equal the shard scans dispatched, and K2 on every shard
+       batch of the last scan (parked all-0xFF lanes included) equals its
+       plain version;
+    4. degradation under a sticky ``drop_shard`` on shard 2: lookups serve
+       its lanes ``degraded`` from the build-time snapshot, an insert fails
+       exactly its lanes, scans that need it fail (with the fault-free
+       prefix); then ``TreeVersionManager.rebalance()`` publishes (its fsck
+       gate passes), health is all ok, shard sizes differ by at most one,
+       every live key is found with its value, and every shard equals the
+       device build of its partition of the live set;
+    5. times: sharded and unsharded ``lookup_batch`` and ``range_scan``
+       (host clock, synchronized, median of ``runs``; none with
+       ``runs=0``), ``rebalance_s``, the phase's peak device memory.
+
+    Returns the phase's JSON object (``k1_launches``/``k2_launches`` count
+    the sharded ops' launches)."""
+    from repro_torch import shard as S
+    from repro_torch.core import batch_ops, fbtree
+    from repro_torch.core.faults import FaultPlan, FaultSpec, RetryPolicy
+    from repro_torch.core.keys import KeySet
+    from repro_torch.core.lifecycle import TreeVersionManager
+    from repro_torch.core.traverse import TraversalEngine
+
+    on_card = torch.device(device).type == "cuda"
+    n, L = kb.shape
+    cfg = tree.config
+    eng = TraversalEngine("fused")
+    vals = np.arange(n, dtype=np.int32)
+    M = max_items
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    cnt = _Launches()
+    t_phase = time.perf_counter()
+
+    # ---- 1. build, against the device build of each partition run
+    _sync(device)
+    t0 = time.perf_counter()
+    st = S.sharded_build(KeySet(kb, kl), vals, n_shards, device=True,
+                         cfg=cfg, target=device)
+    _sync(device)
+    build_s = time.perf_counter() - t0
+    parts, split_keys = fbtree.sharded_partition(KeySet(kb, kl), vals,
+                                                 n_shards, presorted=True)
+    n_fields = 0
+    for s, (pks, pv) in enumerate(parts):
+        want = fbtree.bulk_build(cfg, pks, pv, device=True, target=device)
+        diffs = tree_diffs(st.shards[s], want)
+        n_fields += sum(1 for _ in tree_fields(want))
+        del want
+        if diffs:
+            raise AssertionError(f"shard: shard {s} != the device build of "
+                                 f"its partition run: {diffs}")
+    if not (np.array_equal(st.router.split_bytes.cpu().numpy(),
+                           np.stack([b for b, _ in split_keys]))
+            and st.router.split_lens.tolist() == [l for _, l in split_keys]):
+        raise AssertionError("shard: the router's split keys are not the "
+                             "partition runs' minima")
+    starts = np.cumsum([0] + [p.n for p, _ in parts])[:-1]
+    del parts
+
+    # ---- 2. lookups over every key, the ycsb phase's batches
+    rng = np.random.default_rng(seed + 1)
+    perm = torch.from_numpy(rng.permutation(n)).to(device)
+    flip_all = torch.from_numpy(rng.random(n) < 0.1).to(device)
+    kb_d = torch.from_numpy(kb).to(device)
+    kl_d = torch.from_numpy(kl).to(device)
+    n_batches = -(-n // batch)
+    k1_want = k1_0 = cnt.k1
+    lookups_equal = 0
+    first = None
+    for bi in range(n_batches):
+        idx = perm[bi * batch:(bi + 1) * batch]
+        qb = kb_d[idx].clone()
+        qb[:, -1] ^= torch.where(flip_all[bi * batch:(bi + 1) * batch],
+                                 0xA5, 0).to(torch.uint8)
+        ql = kl_d[idx]
+        v_s, rep_s = cnt.run(S.lookup_batch, st, qb, ql, engine=eng)
+        v_u, rep_u = batch_ops.lookup_batch(tree, qb, ql, engine=eng)
+        k1_want += rep_s.shards_hit
+        if rep_s.shards_hit + rep_s.shards_skipped != n_shards:
+            raise AssertionError("shard: a healthy lookup dropped a shard")
+        lookups_equal += int(torch.equal(v_s, v_u)
+                             and torch.equal(rep_s.found, rep_u.found))
+        if first is None:
+            first = (qb, ql)
+    k1_lookups = cnt.k1 - k1_0
+    if lookups_equal != n_batches:
+        raise AssertionError(f"shard: {n_batches - lookups_equal} of "
+                             f"{n_batches} lookup batches differ from the "
+                             f"unsharded tree")
+    if on_card and k1_lookups != k1_want - k1_0:
+        raise AssertionError(f"shard: {k1_lookups} K1 launches for "
+                             f"{k1_want - k1_0} shard lookups")
+
+    # ---- 3. YCSB-E rounds, then update and remove, on both trees
+    rng = np.random.default_rng(seed + 7)
+    need = (rounds + 1) * n_ins
+    nums = np.zeros(n, np.int64)
+    for i in range(19):
+        nums = nums * 10 + (kb[:, 4 + i] - ord("0"))
+    cand = np.unique(rng.integers(0, 10**18, size=2 * need))
+    fresh = rng.permutation(cand[~np.isin(cand, nums)])[:need]
+    del nums, cand
+    f_kb, f_kl = ycsb_encode(fresh)
+    f_kb, f_kl = torch.from_numpy(f_kb).to(device), torch.from_numpy(
+        f_kl).to(device)
+    f_val = torch.arange(need, dtype=torch.int32, device=device) + n
+    bounds = starts[1:]
+    per = [n_spill // len(bounds) + (i < n_spill % len(bounds))
+           for i in range(len(bounds))]
+    spill_at = np.concatenate([b - 1 - rng.integers(0, 2 * M, size=k)
+                               for b, k in zip(bounds, per)])
+    spill_at = torch.from_numpy(np.clip(spill_at, 0, n - 1)).to(device)
+    ut = tree
+    k2_want = k2_0 = cnt.k2
+    scans_equal = spilled = parked = 0
+    for r in range(rounds):
+        sl = slice(r * n_ins, (r + 1) * n_ins)
+        ut, rep_u, _ = batch_ops.insert_batch(ut, f_kb[sl], f_kl[sl],
+                                              f_val[sl], engine=eng)
+        st, rep_s, _ = cnt.run(S.insert_batch, st, f_kb[sl], f_kl[sl],
+                               f_val[sl], engine=eng)
+        if (bool(rep_u.found.any()) or not torch.equal(rep_u.found,
+                                                        rep_s.found)
+                or bool(rep_s.failed.any())):
+            raise AssertionError("shard: a round's insert differs")
+        idx = torch.from_numpy(zipf_indices(rng, n, batch)).to(device)
+        idx = torch.cat([idx, spill_at])
+        qb = kb_d[idx].clone()
+        flip = torch.from_numpy(rng.random(idx.shape[0]) < 1 / 3).to(device)
+        qb[:, -1] ^= torch.where(flip, 0xA5, 0).to(torch.uint8)
+        ql = kl_d[idx]
+        with _Recorder() as rec:
+            out = cnt.run(S.range_scan, st, qb, ql, max_items=M, engine=eng)
+        want = batch_ops.range_scan(ut, qb, ql, max_items=M, engine=eng)
+        k2_want += len(rec.calls)
+        diffs = _scan_diffs(st, ut, out, want)
+        if diffs or bool(out[4].any()):
+            raise AssertionError(f"shard: round {r} scan differs from the "
+                                 f"unsharded scan on {diffs} (failed "
+                                 f"{int(out[4].sum())})")
+        scans_equal += 1
+        owner = S.route(st.router, qb, ql)
+        last_shard = torch.where(out[0] >= 0, out[0] // st.kid_stride,
+                                 -1).max(1).values
+        spilled += int((last_shard > owner).sum())
+    scan_q, scan_out, scan_want = (qb, ql), out, want
+    k2_scans = cnt.k2 - k2_0
+    if on_card and k2_scans != k2_want - k2_0:
+        raise AssertionError(f"shard: {k2_scans} K2 launches for "
+                             f"{k2_want - k2_0} shard scans")
+    if spilled == 0:
+        raise AssertionError("shard: no scan lane spilled into a later "
+                             "shard")
+    # K2 on each shard batch of the last scan, parked lanes included
+    k2_err = 0
+    for t, sqb, sql, mi in rec.calls:
+        parked += int(((sql == L) & (sqb == 0xFF).all(1)).sum())
+        k2_err = max(k2_err, scan_kernel_vs_plain(t, sqb, sql, mi))
+    if parked == 0:
+        raise AssertionError("shard: no shard batch held a parked lane")
+    shard_scans = [(t, sqb, sql) for t, sqb, sql, _ in rec.calls]
+    del rec
+
+    upd = torch.from_numpy(rng.choice(n, batch, replace=False)).to(device)
+    uqb = kb_d[upd].clone()
+    uqb[::10, -1] ^= 0xA5
+    uval = torch.arange(batch, dtype=torch.int32, device=device) + 2**29
+    ut, rep_u = batch_ops.update_batch(ut, uqb, kl_d[upd], uval, engine=eng)
+    st, rep_s = cnt.run(S.update_batch, st, uqb, kl_d[upd], uval,
+                        engine=eng)
+    rm = upd[:n_remove]
+    ut, rep_u2 = batch_ops.remove_batch(ut, kb_d[rm], kl_d[rm], engine=eng)
+    st, rep_s2 = cnt.run(S.remove_batch, st, kb_d[rm], kl_d[rm], engine=eng)
+    v_s, l_s = cnt.run(S.lookup_batch, st, uqb, kl_d[upd], engine=eng)
+    v_u, l_u = batch_ops.lookup_batch(ut, uqb, kl_d[upd], engine=eng)
+    if not (torch.equal(rep_u.found, rep_s.found)
+            and int(rep_u.conflicts) == int(rep_s.conflicts)
+            and torch.equal(rep_u2.found, rep_s2.found)
+            and bool(rep_s2.found.all())
+            and torch.equal(v_s, v_u) and torch.equal(l_s.found, l_u.found)
+            and st.n_keys_live == ut.n_keys_live):
+        raise AssertionError("shard: update/remove differ from the "
+                             "unsharded tree")
+
+    # ---- 5 (part). times of the healthy tree
+    times = {}
+    if runs:
+        qb, ql = first
+        times = dict(
+            lookup_batch_ms=_host_ms(
+                lambda: S.lookup_batch(st, qb, ql, engine=eng), runs, device),
+            unsharded_lookup_batch_ms=_host_ms(
+                lambda: batch_ops.lookup_batch(tree, qb, ql, engine=eng),
+                runs, device),
+            range_scan_ms=_host_ms(
+                lambda: S.range_scan(st, *scan_q, max_items=M, engine=eng),
+                runs, device),
+            unsharded_range_scan_ms=_host_ms(
+                lambda: batch_ops.range_scan(ut, *scan_q, max_items=M,
+                                             engine=eng), runs, device),
+            # where a routed batch's time goes: the routing with its one
+            # host copy, then each shard's op over the whole batch
+            route_ms=_host_ms(
+                lambda: torch.bincount(S.route(st.router, qb, ql),
+                                       minlength=n_shards).tolist(),
+                runs, device),
+            per_shard_lookup_batch_ms=[_host_ms(
+                lambda t=t: batch_ops.lookup_batch(t, qb, ql, engine=eng),
+                runs, device) for t in st.shards],
+            per_shard_range_scan_ms=[_host_ms(
+                lambda c=c: batch_ops.range_scan(*c, max_items=M,
+                                                 engine=eng), runs, device)
+                for c in shard_scans])
+    del shard_scans
+
+    # ---- 4. degradation: shard 2 drops at every dispatch
+    down_s = min(2, n_shards - 1)
+    plan = FaultPlan((FaultSpec("shard.dispatch.*", "drop_shard",
+                                shard=down_s),), sleep=lambda s: None)
+    retry = RetryPolicy(sleep=lambda s: None)
+    look = torch.from_numpy(rng.choice(n, batch, replace=False)).to(device)
+    qb, ql = kb_d[look], kl_d[look]
+    v, rep = cnt.run(S.lookup_batch, st, qb, ql, engine=eng, faults=plan,
+                     retry=retry)
+    down = rep.owner == down_s
+    v_snap, r_snap = batch_ops.lookup_batch(tree, qb, ql, engine=eng)
+    v_now, r_now = batch_ops.lookup_batch(ut, qb, ql, engine=eng)
+    want_v = torch.where(down, v_snap, v_now)
+    want_f = torch.where(down, r_snap.found, r_now.found)
+    if not (bool(down.any()) and torch.equal(rep.degraded, down)
+            and torch.equal(v, want_v) and torch.equal(rep.found, want_f)
+            and rep.shards_dropped == (down_s,)
+            and not st.health.is_ok(down_s)):
+        raise AssertionError("shard: degraded lookups do not serve the "
+                             "down shard's lanes from its snapshot")
+    sl = slice(rounds * n_ins, need)
+    st, rep, _ = cnt.run(S.insert_batch, st, f_kb[sl], f_kl[sl], f_val[sl],
+                         engine=eng, faults=plan, retry=retry)
+    if not (bool(rep.failed.any())
+            and torch.equal(rep.failed, rep.owner == down_s)):
+        raise AssertionError("shard: the insert did not fail exactly the "
+                             "down shard's lanes")
+    ut, _, _ = batch_ops.insert_batch(ut, f_kb[sl], f_kl[sl], f_val[sl],
+                                      engine=eng, mask=~rep.failed)
+    ins_failed = int(rep.failed.sum())
+    qb, ql = scan_q
+    out = cnt.run(S.range_scan, st, qb, ql, max_items=M, engine=eng,
+                  faults=plan, retry=retry)
+    want = batch_ops.range_scan(ut, qb, ql, max_items=M, engine=eng)
+    owner = S.route(st.router, qb, ql)
+    wb, wl = _resolved(ut, want[0])
+    item_owner = S.route(st.router, wb.reshape(-1, L),
+                         wl.reshape(-1)).reshape(wl.shape)
+    needs = (owner == down_s) | ((owner < down_s) & (
+        (item_owner >= down_s) & (want[0] >= 0)).any(1))
+    ok = ~needs
+    prefix = torch.arange(M, device=qb.device)[None, :] < out[2][:, None]
+    gb, gl = st.key_rows(out[0])
+    if not (torch.equal(out[4], needs) and bool(needs.any())
+            and not _scan_diffs(st, ut, out, want, rows=ok)
+            and torch.equal(torch.where(prefix[..., None], wb, 0), gb)
+            and torch.equal(torch.where(prefix, want[1], 0), out[1])):
+        raise AssertionError("shard: scans needing the down shard are not "
+                             "exactly the failed lanes with a correct "
+                             "prefix")
+    scan_failed = int(needs.sum())
+
+    mgr = TreeVersionManager(st, faults=plan)
+    _sync(device)
+    t0 = time.perf_counter()
+    pub = mgr.rebalance()
+    _sync(device)
+    publish_s = time.perf_counter() - t0
+    if not (pub.ok and mgr.verify):
+        raise AssertionError(f"shard: the rebalance did not publish: "
+                             f"{pub.reason}")
+    st2, rb = mgr.current, pub.aux
+    _sync(device)
+    t0 = time.perf_counter()
+    again, _ = S.rebalance(st, faults=plan)
+    _sync(device)
+    rebalance_s = time.perf_counter() - t0
+    del again, st
+    kb_l, kl_l, _, vv_l, n_live = batch_ops.gather_live_sorted(ut)
+    n_live = int(n_live)
+    kb_l, kl_l, vv_l = kb_l[:n_live], kl_l[:n_live], vv_l[:n_live]
+    live_found = 0
+    for lo in range(0, n_live, batch):
+        got, rep = cnt.run(S.lookup_batch, st2, kb_l[lo:lo + batch],
+                           kl_l[lo:lo + batch], engine=eng)
+        live_found += int((rep.found & (got == vv_l[lo:lo + batch])).sum())
+    after = list(rb.counts_after)
+    if not (st2.health.n_unhealthy == 0 and max(after) - min(after) <= 1
+            and rb.n_live == n_live and live_found == n_live):
+        raise AssertionError(f"shard: after the rebalance: health "
+                             f"{st2.health}, counts {after}, n_live "
+                             f"{rb.n_live} vs {n_live}, {live_found} live "
+                             f"keys found with their value")
+    parts, _ = fbtree.sharded_partition(
+        KeySet(kb_l.cpu().numpy(), kl_l.cpu().numpy()), vv_l.cpu().numpy(),
+        n_shards, presorted=True)
+    for s, (pks, pv) in enumerate(parts):
+        want = fbtree.bulk_build(cfg, pks, pv, device=True, target=device)
+        diffs = tree_diffs(st2.shards[s], want)
+        del want
+        if diffs:
+            raise AssertionError(f"shard: rebalanced shard {s} != the "
+                                 f"device build of its partition of the "
+                                 f"live set: {diffs}")
+    del parts, st2, mgr
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    out = {"phase": "shard", "keys": n, "shards": n_shards,
+           "device": str(device), "config": {"ns": cfg.ns, "fs": cfg.fs,
+                                             "n_levels": cfg.n_levels,
+                                             "key_cap": cfg.key_cap},
+           "build_s": build_s, "fields_compared": n_fields,
+           "lookup_batches": n_batches, "lookup_batches_equal": lookups_equal,
+           "k1_launches_lookups": k1_lookups,
+           "scan_rounds": rounds, "scan_batch": int(scan_q[0].shape[0]),
+           "scans_equal": scans_equal, "spilled_lanes": spilled,
+           "k2_launches_scans": k2_scans, "parked_lanes_checked": parked,
+           "k2_parked_vs_plain_max_abs_err": k2_err,
+           "updated": batch, "removed": n_remove,
+           "degraded_lanes": int(down.sum()),
+           "insert_failed_lanes": ins_failed,
+           "scan_failed_lanes": scan_failed,
+           "rebalance_s": rebalance_s, "rebalance_publish_s": publish_s,
+           "counts_before": list(rb.counts_before), "counts_after": after,
+           "n_live": n_live, "live_found": live_found,
+           "k1_launches": cnt.k1, "k2_launches": cnt.k2,
+           "peak_bytes": peak, "phase_s": time.perf_counter() - t_phase,
+           **times}
+    emit(out)
+    card = _smi() if on_card else "cpu (no device times)"
+    for name, v in times.items():
+        emit({"metric": f"shard_{name}", "value": v, "runs": runs,
+              "clock": "host, synchronized", "card": card})
+    emit({"metric": "shard_rebalance_s", "value": rebalance_s,
+          "card": card})
+    emit({"metric": "shard_peak_device_bytes", "value": peak, "card": card})
+    return out
+
+
+def run_shard_cache(log, *, n_pages, block_tokens, device, n_shards=4):
+    """Replay the ``serve`` phase's recorded cache calls (``log``, from
+    :func:`_serve_engine`) on a ``PrefixCache(n_shards=n_shards)`` with the
+    ``"fused"`` engine on ``device`` and on the same cache on the CPU:
+    every answer must equal the other cache's and the one recorded from
+    the unsharded cache, and the pools, stats and every shard's arrays must
+    be equal at the end. Returns the phase's JSON object."""
+    from repro_torch.core.traverse import TraversalEngine
+    from repro_torch.serving import PrefixCache
+    eng = TraversalEngine("fused", collect_stats=False)
+    caches = [PrefixCache(n_pages, block_tokens, engine=eng,
+                          n_shards=n_shards, target=d)
+              for d in (device, "cpu")]
+    cnt = _Launches()
+    calls = same = 0
+    for e in log:
+        if e[0] == "match":
+            got = [cnt.run(caches[0].match, e[1]), caches[1].match(e[1])]
+            ok = got[0] == got[1] == e[2]
+        else:
+            got = [cnt.run(caches[0].publish, e[1], e[2]),
+                   caches[1].publish(e[1], e[2])]
+            ok = all((g is None) == (e[3] is None)
+                     and (g is None or np.array_equal(g, e[3]))
+                     for g in got)
+        calls += 1
+        same += int(ok)
+    card, cpu = caches
+    diffs = [f"shard{s}.{d}" for s, (a, b) in enumerate(
+        zip(card.tree.shards, cpu.tree.shards)) for d in tree_diffs(a, b)]
+    diffs += _pool_diffs(card.pool, cpu.pool)
+    out = {"phase": "shard-cache", "shards": n_shards, "calls": calls,
+           "answers_equal": same, "stats": card.stats,
+           "stats_equal": card.stats == cpu.stats, "diffs": diffs,
+           "evicts": card.stats["evicts"], "k1_launches": cnt.k1,
+           "k2_launches": cnt.k2}
+    emit(out)
+    if same != calls or diffs or card.stats != cpu.stats:
+        raise AssertionError(f"shard-cache: {calls - same} of {calls} "
+                             f"answers differ, arrays {diffs[:5]}, stats "
+                             f"{card.stats} vs {cpu.stats}")
+    return out
+
+
+def rehearse_shard(seed=0):
+    """The ``shard`` phase and the sharded cache replay on the CPU at a
+    small size: 6,000 ycsb keys in 4 shards, batches of 512, two scan
+    rounds, and the cache calls of :func:`rehearse_serve`'s mix. Every
+    check of both but the kernels' (the plain versions run). Returns
+    ``(shard line, shard-cache line)``."""
+    from repro_torch.core import fbtree
+    from repro_torch.core.keys import KeySet
+    n = 6_000
+    kb, kl = ycsb_keys(n, seed)
+    cfg = fbtree.TreeConfig.plan(max_keys=int(n * 2.5), key_width=24)
+    tree = fbtree.bulk_build(cfg, KeySet(kb, kl), np.arange(n, dtype=np.int32),
+                             target="cpu")
+    out = run_shard(tree, kb, kl, seed=seed, device="cpu", batch=512,
+                    rounds=2, n_ins=100, n_spill=48, n_remove=128, runs=0)
+    _, _, log = _serve(seed, torch.device("cpu"), 0, **REHEARSAL_MIX)
+    cache = run_shard_cache(log, n_pages=REHEARSAL_MIX["n_pages"],
+                            block_tokens=16, device="cpu")
+    return out, cache
 
 
 # ---------------------------------------------------------- factor analysis
@@ -1716,7 +2232,8 @@ def _serve_engine(cfg, params, scfg, reqs, dev):
     engine makes to its prefix cache, checking each load of cached KV
     against the request's own prefill, timing each prefill and decode
     step, and counting the kernel launches of the run. Returns
-    ``(results, fails)``; the engine is freed on return."""
+    ``(results, fails, log)``, ``log`` the recorded cache calls; the engine
+    is freed on return."""
     from repro_torch import obs
     from repro_torch.core import fsck
     from repro_torch.core.traverse import TraversalEngine
@@ -1847,7 +2364,7 @@ def _serve_engine(cfg, params, scfg, reqs, dev):
                kv_load_max_abs_err=kv_err, peak_bytes=peak,
                latency_p50_s=lat.p50 if lat is not None else None,
                latency_p99_s=lat.p99 if lat is not None else None)
-    return res, fails
+    return res, fails, log
 
 
 def run_serve(*, seed, runs=25):
@@ -1857,7 +2374,8 @@ def run_serve(*, seed, runs=25):
     FB+-tree prefix cache with the ``"fused"`` tree engine; the checks of
     :func:`_serve_engine`, two fresh engines serving ``reqs[0]`` alike, K5
     against its plain version on the real q, k, v of the first and last
-    layer and on ``K5_CASES``, and K5's timing at the served shape."""
+    layer and on ``K5_CASES``, and K5's timing at the served shape.
+    Returns ``(phase line, K5 timing, recorded cache calls)``."""
     return _serve(seed, torch.device("cuda"), runs, **SERVE_MIX)
 
 
@@ -1886,7 +2404,7 @@ def _serve(seed, dev, runs, *, smoke, n_req, plen, shared, new_tokens,
     scfg = ServeConfig(max_batch=4, s_max=plen + new_tokens + 8,
                        block_tokens=16, n_pages=n_pages,
                        max_new_tokens=new_tokens, tree_backend="fused")
-    res, fails = _serve_engine(cfg, params, scfg, reqs, dev)
+    res, fails, log = _serve_engine(cfg, params, scfg, reqs, dev)
     if on_card:
         torch.cuda.empty_cache()
     # determinism: two fresh engines serving reqs[0] alone
@@ -1936,7 +2454,7 @@ def _serve(seed, dev, runs, *, smoke, n_req, plen, shared, new_tokens,
     emit({"metric": "serve_peak_device_bytes", "value": res["peak_bytes"]})
     if fails:
         raise AssertionError("serve: " + "; ".join(fails))
-    return out, timing
+    return out, timing, log
 
 
 def _leaves(tree):
@@ -2006,13 +2524,18 @@ def main(argv=None) -> int:
         batch=args.batch)
     rebuilt, (lkb, lkl, lval), _ = run_rebuild(
         dirty, kb, kl, inserts, seed=args.seed, device=dev, batch=args.batch)
-    del kb, kl, inserts
+    del inserts
     ycsb2 = fbtree.bulk_build(dataclasses.replace(rebuilt.config, fs=2),
                               KeySet(lkb, lkl), lval, device=True, target=dev)
     f_outs = [run_factor("ycsb-rebuilt", {2: ycsb2, 4: rebuilt}, lkb, lkl,
                          lval, seed=args.seed, device=dev, batch=args.batch)]
     fqb, fql = f_outs[0][1]
     del ycsb2, lkb, lkl, lval
+    torch.cuda.empty_cache()
+    sh_out = run_shard(tree, kb, kl, seed=args.seed, device=dev,
+                       batch=args.batch, runs=args.runs)
+    del kb, kl
+    torch.cuda.empty_cache()
     ukb, ukl = url_keys(args.url_keys, args.seed)
     url_tree, _, u_out = run_phase("url", ukb, ukl, ns=64, batch=args.batch,
                                    seed=args.seed, device=dev, stale="single")
@@ -2041,23 +2564,35 @@ def main(argv=None) -> int:
     factor = [f for f, _ in f_outs]
     del tree, clean, dirty, rebuilt, qb, ql, sqb, sql, fqb, fql
     torch.cuda.empty_cache()
-    s_out, k5t = run_serve(seed=args.seed, runs=args.runs)
+    s_out, k5t, s_log = run_serve(seed=args.seed, runs=args.runs)
     k5_checks = [*s_out["k5_real"].values(), *s_out["k5_sweep"].values()]
+    shc_out = run_shard_cache(s_log, n_pages=s_out["serve_config"]["n_pages"],
+                              block_tokens=s_out["serve_config"][
+                                  "block_tokens"], device=dev)
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "fused_descent", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_descent.cu",
         "replaces": "src/repro/kernels/fused_descent/kernel.py:299",
-        "launches": main_out["launches"],
+        "launches": main_out["launches"] + sh_out["k1_launches"]
+        + shc_out["k1_launches"],
+        "launches_by_path": {"ycsb": main_out["launches"],
+                             "shard": sh_out["k1_launches"],
+                             "shard-cache": shc_out["k1_launches"]},
         "max_abs_err": main_out["kernel_vs_plain_max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None}, {
         "name": "fused_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_scan.cu",
         "replaces": "src/repro/kernels/fused_scan/kernel.py:237",
-        "launches": e_out["k2_launches"],
+        "launches": e_out["k2_launches"] + sh_out["k2_launches"]
+        + shc_out["k2_launches"],
+        "launches_by_path": {"ycsb-e": e_out["k2_launches"],
+                             "shard": sh_out["k2_launches"],
+                             "shard-cache": shc_out["k2_launches"]},
         "max_abs_err": max(e_out["kernel_vs_plain_max_abs_err"],
-                           a_out["kernel_vs_plain_max_abs_err"]),
+                           a_out["kernel_vs_plain_max_abs_err"],
+                           sh_out["k2_parked_vs_plain_max_abs_err"]),
         "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
         "bound_by": st["bound_by"], "library_ms": None}, {
         "name": "feature_branch", "route": "cuda",

@@ -18,10 +18,6 @@ from its seed. Faults come in four kinds:
 * ``delay``       sleep a bounded jitter before a routed op (exercises the
   async combine without changing results).
 
-The port has no shards yet: ``drop_shard`` specs still fire (and raise
-:class:`ShardDropped`) wherever a caller visits a ``shard.dispatch`` site,
-but no code of the port visits one until the shard layer is ported.
-
 Fault *sites* are dotted names (``lifecycle.rebuild.gather``,
 ``shard.dispatch.lookup``, ...); specs match them with ``fnmatch``
 patterns. Instrumented code calls :meth:`FaultPlan.fire` at each site —
@@ -331,16 +327,22 @@ def _apply_corruption(tree, rng: random.Random, kind: str):
 
 
 def corrupt_tree(tree, rng: random.Random, kind: Optional[str] = None):
-    """Structurally corrupt an FBTree such that ``core.fsck`` is guaranteed
-    to flag it. Returns ``(tree', kind)``; the input tree is untouched.
+    """Structurally corrupt a tree (FBTree or ShardedTree) such that
+    ``core.fsck`` is guaranteed to flag it. Returns ``(tree', kind)``; the
+    input tree is untouched.
 
     With ``kind=None`` a random applicable corruption is chosen;
-    ``chain_break`` is the universal fallback (applies to any tree).
-    Sharded trees come with the shard layer (ROADMAP queue 1 item 10).
+    ``chain_break`` is the universal fallback (applies to any tree). A
+    ShardedTree draws its victim shard from ``rng`` before the shard's
+    corruption, as the reference does, so one seed damages the same shard
+    the same way in both packages.
     """
-    if hasattr(tree, "shards"):
-        raise NotImplementedError("corrupt_tree: sharded trees are not "
-                                  "ported yet (ROADMAP queue 1 item 10)")
+    if hasattr(tree, "shards"):        # ShardedTree (duck-typed: no import
+        s = rng.randrange(len(tree.shards))   # cycle with shard)
+        t2, k = corrupt_tree(tree.shards[s], rng, kind=kind)
+        shards = list(tree.shards)
+        shards[s] = t2
+        return tree.replace(shards=tuple(shards)), k
     kinds = [kind] if kind is not None else list(CORRUPTIONS)
     if kind is None:
         rng.shuffle(kinds)

@@ -31,7 +31,8 @@ from . import keys as K
 
 __all__ = ["TreeConfig", "Level", "TreeArrays", "FBTree", "EMPTY", "BIG",
            "bulk_build", "stack_levels", "chunk_start", "chunk_of_pos",
-           "recompute_inner_meta", "resolve_target", "sharded_partition"]
+           "recompute_inner_meta", "resolve_target", "sharded_partition",
+           "build_sorted"]
 
 EMPTY = -1
 BIG = 2**30
@@ -610,21 +611,41 @@ def _bulk_build_device(cfg: TreeConfig, ks: K.KeySet, vals,
                        dev: torch.device) -> FBTree:
     """``bulk_build(device=True)`` body: device sort, then the build core,
     both on ``dev``."""
-    n, L = ks.n, cfg.key_width
     qb = torch.from_numpy(np.ascontiguousarray(ks.bytes)).to(dev)
     ql = torch.from_numpy(np.asarray(ks.lens, np.int32)).to(dev)
     order = K.lex_sort_indices_t(qb, ql)
+    vv = torch.as_tensor(np.asarray(vals)).to(dev, cfg.val_dtype)
+    return _build_sorted(cfg, qb, ql, vv, order)
+
+
+def build_sorted(cfg: TreeConfig, kb: torch.Tensor, kl: torch.Tensor,
+                 vals: torch.Tensor) -> FBTree:
+    """The device build of keys that are already unique and ascending (in
+    ``keys.lex_sort_indices_t``'s order): ``kb`` uint8 ``[n, L]``, ``kl``
+    ``[n]`` and ``vals`` ``[n]``, all on the device the tree is built on.
+    Equal to ``bulk_build(device=True)`` of the same keys, without its
+    sort; the shard layer's ``rebalance`` builds each new shard from its
+    slice of the concatenated, already sorted shard snapshots."""
+    _check_capacity(cfg, kb.shape[0])
+    return _build_sorted(cfg, kb, kl.to(torch.int32),
+                         vals.to(cfg.val_dtype), None)
+
+
+def _build_sorted(cfg: TreeConfig, qb, ql, vv, order) -> FBTree:
+    """Fill pool-shaped arrays with the keys in ``order`` (``None``: as
+    given) and run :func:`_device_build_from_sorted`."""
+    n, L, dev = qb.shape[0], cfg.key_width, qb.device
+    pick = (lambda t: t) if order is None else (lambda t: t[order])
     KC1 = cfg.key_cap + 1
     kb = torch.zeros((KC1, L), dtype=torch.uint8, device=dev)
-    kb[:n] = qb[order]
+    kb[:n] = pick(qb)
     kl = torch.zeros((KC1,), dtype=torch.int32, device=dev)
-    kl[:n] = ql[order]
+    kl[:n] = pick(ql)
     ktags = torch.zeros((KC1,), dtype=torch.uint8, device=dev)
-    ktags[:n] = K.fnv1a_tags(qb, ql)[order]
-    vv = torch.zeros((KC1,), dtype=cfg.val_dtype, device=dev)
-    vv[:n] = torch.as_tensor(np.asarray(vals)).to(dev, cfg.val_dtype)[order]
-    del qb, ql, order
-    arrays, err = _device_build_from_sorted(cfg, kb, kl, ktags, vv, n)
+    ktags[:n] = pick(K.fnv1a_tags(qb, ql))
+    vals = torch.zeros((KC1,), dtype=cfg.val_dtype, device=dev)
+    vals[:n] = pick(vv)
+    arrays, err = _device_build_from_sorted(cfg, kb, kl, ktags, vals, n)
     # _check_capacity already vetted n on the host; err re-validates it
     if bool(err):  # pragma: no cover - unreachable after _check_capacity
         raise RuntimeError("bulk_build(device=True): capacity exceeded")

@@ -1,6 +1,6 @@
 """Structural fsck over real ``TreeArrays`` (DESIGN.md §8) — the port's
-counterpart of ``repro.core.fsck``, for unsharded trees (``check_sharded``
-comes with the shard layer, ROADMAP queue 1 item 10).
+counterpart of ``repro.core.fsck``, for FBTrees (:func:`check_tree`) and
+ShardedTrees (:func:`check_sharded`).
 
 ``core.protocol.check_invariants`` validates the §2 concurrency protocol
 on a *simulated* tree; this module ports the same invariants — chain
@@ -49,7 +49,8 @@ import torch
 
 from .fbtree import FBTree, recompute_inner_meta, stack_levels
 
-__all__ = ["FsckReport", "check_tree", "check", "assert_ok"]
+__all__ = ["FsckReport", "check_tree", "check_sharded", "check",
+           "assert_ok"]
 
 _EMPTY = -1
 
@@ -68,18 +69,51 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _words64(kb: np.ndarray) -> np.ndarray:
+    """Key bytes as big-endian uint64 words, zero-padded: the words compare
+    as the bytes do."""
+    n, L = kb.shape
+    buf = np.zeros((n, -(-L // 8) * 8), np.uint8)
+    buf[:, :L] = kb
+    return buf.view(">u8").astype(np.uint64)
+
+
 def _key_ranks(kb: np.ndarray, kl: np.ndarray) -> np.ndarray:
     """Dense order rank per pool row; equal (bytes, len) rows share a rank.
 
-    Row-lexicographic order over ``bytes ‖ len_be`` is exactly the tree's
-    key order (padded-byte compare with the length tie-break).
+    The order is the tree's key order (padded-byte compare with the
+    length tie-break), the reference's row-lexicographic order over
+    ``bytes ‖ len_be``. The rows are sorted as 64-bit words plus the
+    length with one ``np.lexsort``, which at millions of rows takes
+    seconds where the reference's ``np.unique(axis=0)`` over byte rows
+    takes minutes.
     """
     if kb.shape[0] == 0:
         return np.zeros((0,), np.int64)
-    lens_be = kl.astype(">u4").view(np.uint8).reshape(kl.shape[0], 4)
-    rows = np.concatenate([kb, lens_be], axis=1)
-    _, inv = np.unique(rows, axis=0, return_inverse=True)
-    return inv.astype(np.int64)
+    words = _words64(kb)
+    order = np.lexsort([kl] + [words[:, i]
+                               for i in range(words.shape[1] - 1, -1, -1)])
+    sw, sl = words[order], kl[order]
+    new = np.empty(order.shape[0], dtype=bool)
+    new[0] = False
+    new[1:] = (sw[1:] != sw[:-1]).any(axis=1) | (sl[1:] != sl[:-1])
+    ranks = np.empty(order.shape[0], np.int64)
+    ranks[order] = np.cumsum(new)
+    return ranks
+
+
+def _owners(kb: np.ndarray, kl: np.ndarray, sb: np.ndarray,
+            sl: np.ndarray) -> np.ndarray:
+    """Routed shard per key: the largest ``s`` with ``key >= split[s]``
+    (0 below every split), by the tree's key order — the reference's
+    rank-based owner, computed by direct compares."""
+    kw, sw = _words64(kb), _words64(sb)
+    cmp = np.sign(kl[:, None].astype(np.int64) - sl[None, :].astype(np.int64))
+    for i in range(kw.shape[1] - 1, -1, -1):
+        a, b = kw[:, None, i], sw[None, :, i]
+        d = (a > b).astype(np.int64) - (a < b).astype(np.int64)
+        cmp = np.where(d != 0, d, cmp)
+    return np.maximum((cmp >= 0).sum(axis=1) - 1, 0)
 
 
 def check_tree(tree: FBTree, name: str = "tree",
@@ -328,11 +362,55 @@ def check_tree(tree: FBTree, name: str = "tree",
                       n_leaves=leaf_count)
 
 
+def check_sharded(st, prev=None, max_violations: int = 20) -> FsckReport:
+    """fsck a ShardedTree: per-shard :func:`check_tree` plus the router
+    invariants — ascending split keys and every shard's live keys inside
+    its routed range."""
+    v: List[str] = []
+    n_live = 0
+    n_leaves = 0
+    prev_shards = getattr(prev, "shards", None)
+    for s, t in enumerate(st.shards):
+        p = (prev_shards[s] if prev_shards is not None
+             and len(prev_shards) == len(st.shards) else None)
+        rep = check_tree(t, name=f"shard{s}", prev=p,
+                         max_violations=max_violations - len(v))
+        v.extend(rep.violations)
+        n_live += rep.n_live
+        n_leaves += rep.n_leaves
+    # router: ascending splits, and range partition holds
+    sb = _np(st.router.split_bytes)
+    sl = _np(st.router.split_lens)
+    ranks = _key_ranks(sb, sl)
+    if len(v) < max_violations:
+        if sb.shape[0] != len(st.shards):
+            v.append(f"router has {sb.shape[0]} splits for "
+                     f"{len(st.shards)} shards")
+        elif sb.shape[0] > 1 and not (np.diff(ranks) > 0).all():
+            v.append("router split keys not strictly ascending")
+    for s, t in enumerate(st.shards):
+        if len(v) >= max_violations:
+            break
+        a = t.arrays
+        occ = _np(a.leaf_occ)
+        kid = _np(a.leaf_keyid)
+        kc = int(a.key_count)
+        ids = kid[occ]
+        ids = ids[(ids >= 0) & (ids < kc)]
+        if ids.size == 0:
+            continue
+        owner = _owners(_np(a.key_bytes)[ids], _np(a.key_lens)[ids], sb, sl)
+        if (owner != s).any():
+            v.append(f"shard{s}: {int((owner != s).sum())} live keys "
+                     f"route to a different shard (partition broken)")
+    return FsckReport(ok=not v, violations=tuple(v), n_live=n_live,
+                      n_leaves=n_leaves)
+
+
 def check(obj, prev=None, max_violations: int = 20) -> FsckReport:
-    """fsck a tree (sharded trees come with the shard layer)."""
+    """Dispatch on tree flavor (FBTree vs ShardedTree, duck-typed)."""
     if hasattr(obj, "shards"):
-        raise NotImplementedError("fsck of a sharded tree is not ported yet "
-                                  "(ROADMAP queue 1 item 10)")
+        return check_sharded(obj, prev=prev, max_violations=max_violations)
     return check_tree(obj, prev=prev, max_violations=max_violations)
 
 

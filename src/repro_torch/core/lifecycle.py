@@ -1,16 +1,15 @@
 """Versioned tree lifecycle: double-buffered atomic publish (DESIGN.md §8) —
-the port's counterpart of ``repro.core.lifecycle``, for unsharded trees
-(``rebalance`` comes with the shard layer, ROADMAP queue 1 item 10).
+the port's counterpart of ``repro.core.lifecycle``.
 
-``TreeVersionManager`` owns the serving tree (an FBTree) and
+``TreeVersionManager`` owns the serving tree (FBTree or ShardedTree) and
 splits mutations into two classes, mirroring the paper's §2 protocol
 promoted from ``core.protocol``'s simulator to the real arrays:
 
 * :meth:`commit`  — in-place batch-op results (insert/update/remove).
   These are already latch-free-safe under the version/link protocol; they
   replace the current object *within* the same published version.
-* :meth:`publish` — bulk barriers (``rebuild``,
-  ``PrefixCache.compact``). The new version is built
+* :meth:`publish` — bulk barriers (``rebuild``, ``rebalance``,
+  ``PrefixCache.compact``, ``sharded_build``). The new version is built
   **off to the side**, structurally fsck'd (``core.fsck``), and swapped in
   only on success. Any failure — an exception mid-build, a capacity
   error, an fsck violation on the staged arrays — leaves the previous
@@ -24,7 +23,7 @@ reference assignment — atomic with respect to anything reading
 
 Fault sites (``core.faults.FaultPlan.fire``): ``lifecycle.begin``,
 ``lifecycle.rebuild.gather``, ``lifecycle.rebuild.build``,
-``lifecycle.staged`` (corruption),
+``lifecycle.rebalance.barrier``, ``lifecycle.staged`` (corruption),
 ``lifecycle.fsck``, ``lifecycle.swap``.
 """
 from __future__ import annotations
@@ -44,7 +43,7 @@ __all__ = ["TreeVersion", "PublishReport", "TreeVersionManager"]
 
 
 class TreeVersion(NamedTuple):
-    obj: Any          # FBTree
+    obj: Any          # FBTree | ShardedTree
     version: int      # bumps on every successful publish, never on commit
     label: str        # what published it ("initial", "rebuild", ...)
 
@@ -172,8 +171,8 @@ class TreeVersionManager:
         the published arrays are bit-identical to it."""
         tree = self.current
         if not isinstance(tree, FBTree):
-            raise TypeError("rebuild() needs an FBTree (sharded trees "
-                            "come with the shard layer)")
+            raise TypeError("rebuild() needs an FBTree; use rebalance() "
+                            "for a ShardedTree")
 
         def build():
             self._fire("lifecycle.rebuild.gather", label=label)
@@ -186,5 +185,24 @@ class TreeVersionManager:
                 reclaimed=(tree.arrays.key_count - n_live).to(torch.int32),
                 error=err)
             return FBTree(tree.config, arrays), rep
+
+        return self.publish(build, label=label)
+
+    def rebalance(self, device: bool = True,
+                  label: str = "rebalance") -> PublishReport:
+        """``shard.ops.rebalance`` as an abortable publish. Doubles as the
+        recovery path for dropped shards: the rebuilt ShardedTree starts
+        with fresh (all-healthy) health state and fresh barrier snapshots,
+        re-admitting any shard that was marked down. On an FBTree it is
+        :meth:`rebuild`."""
+        st = self.current
+        if isinstance(st, FBTree):
+            return self.rebuild(label=label)
+        from ..shard import ops as shard_ops  # lazy: core<->shard
+
+        def build():
+            self._fire("lifecycle.rebalance.barrier", label=label)
+            return shard_ops.rebalance(st, device=device,
+                                       faults=self.faults)
 
         return self.publish(build, label=label)

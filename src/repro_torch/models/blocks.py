@@ -45,7 +45,7 @@ def _dense_only(kind: str) -> None:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet: the MoE, MLA, mamba, "
             f"hybrid and enc-dec blocks come with the other model families "
-            f"(ROADMAP queue 1 item 7)")
+            f"(ROADMAP queue 1, \"The other model families\")")
 
 
 # ------------------------------------------------------------------ params

@@ -28,7 +28,8 @@ def _dense_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet (only "
             f"dense GQA decoders are); the moe, mla, ssm, hybrid, enc-dec "
-            f"and vlm families come later (ROADMAP queue 1 item 7)")
+            f"and vlm families come later (ROADMAP queue 1, \"The other "
+            f"model families\")")
 
 
 def layer_params(seg: Params, i: int) -> Params:

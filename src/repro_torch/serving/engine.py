@@ -41,9 +41,10 @@ class ServeConfig:
     # traversal engine for the prefix-cache tree (None -> core default)
     tree_backend: Optional[str] = None
     tree_layout: Optional[str] = None
-    # prefix-cache tree shards (>1 needs the shard layer, not ported yet)
+    # prefix-cache tree shards (>1 routes through repro_torch.shard,
+    # DESIGN.md §7)
     tree_shards: int = 1
-    # fault-injection plan for the cache's lifecycle
+    # fault-injection plan for the cache's lifecycle + shard dispatch
     # (core.faults.FaultPlan; None = fault-free serving)
     faults: Optional[object] = None
 

@@ -24,10 +24,13 @@ All cache operations are *batched tree ops* on the FB+-tree core:
 This is exactly the paper's skewed workload: shared system prompts ⇒ heavy
 key-prefix skew ⇒ the tree behaves trie-like (feature comparison wins).
 
-Sharded mode (``n_shards > 1``) comes with the shard layer (ROADMAP queue
-1 item 10) and raises ``NotImplementedError`` until then. The tree lives on
-the device the cache is given (``target``; the card unless asked for the
-CPU), and every op above runs there.
+**Sharded mode** (``n_shards > 1``, DESIGN.md §7): the cache runs on a
+``repro_torch.shard.ShardedTree`` — digests are uniform, so evenly spaced
+first-byte sentinels seed a balanced range partition and every op above
+routes through the shard layer unchanged (same engine, same semantics);
+``compact`` becomes ``rebalance`` (the cross-shard barrier). The tree
+lives on the device the cache is given (``target``; the card unless asked
+for the CPU), and every op above runs there.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import torch
 
 from ..core import batch_ops as B
 from ..core import keys as K
-from ..core.faults import FaultPlan
+from ..core.faults import FaultPlan, RetryPolicy
 from ..core.fbtree import TreeConfig, bulk_build
 from ..core.lifecycle import PublishReport, TreeVersionManager
 from ..core.traverse import TraversalEngine
@@ -72,11 +75,8 @@ class PrefixCache:
                  engine: Optional[TraversalEngine] = None,
                  compact_factor: float = 4.0, n_shards: int = 1,
                  faults: Optional[FaultPlan] = None,
+                 retry: Optional[RetryPolicy] = None,
                  target: Optional[str] = None):
-        if int(n_shards) != 1:
-            raise NotImplementedError(
-                "PrefixCache: n_shards > 1 needs the shard layer, which is "
-                "not ported yet (ROADMAP queue 1 item 10)")
         self.block_tokens = block_tokens
         # serving never reads the modeled hardware counters, so the default
         # engine runs the stats-free hot path (DESIGN.md §3): leaf ids and
@@ -90,13 +90,28 @@ class PrefixCache:
         # compact_factor× more leaves than a fresh build of the live keys
         # would; 0/None disables the trigger (compact() stays callable)
         self.compact_factor = compact_factor
+        self.n_shards = int(n_shards)
         self.faults = faults
+        self.retry = retry
         cfg = TreeConfig.plan(
             max_keys=max_keys, key_width=KEY_W,
             stacked=(engine is not None and engine.layout == "stacked"))
-        seed = K.make_keyset([b"\x00" * KEY_W], KEY_W)  # sentinel root
-        tree = bulk_build(cfg, seed, np.array([-1], np.int32),
-                          target=target)
+        if self.n_shards > 1:
+            from .. import shard as SH
+            self._shard = SH
+            # one sentinel per shard, first bytes evenly spaced over the
+            # (uniform) digest space — balanced routing without rebalancing
+            seeds = [bytes([(256 * s) // self.n_shards]) +
+                     b"\x00" * (KEY_W - 1) for s in range(self.n_shards)]
+            ks = K.make_keyset(seeds, KEY_W)
+            tree = SH.sharded_build(
+                ks, np.full(self.n_shards, -1, np.int32), self.n_shards,
+                cfg=cfg, target=target)
+        else:
+            self._shard = None
+            seed = K.make_keyset([b"\x00" * KEY_W], KEY_W)  # sentinel root
+            tree = bulk_build(cfg, seed, np.array([-1], np.int32),
+                              target=target)
         # all tree state lives behind the version manager (DESIGN.md §8):
         # in-place ops commit under the current version; compact() is an
         # atomic fsck-gated publish, so a failed barrier can never leave
@@ -105,7 +120,7 @@ class PrefixCache:
         self.stats = {"lookups": 0, "hits": 0, "inserts": 0, "evicts": 0,
                       "rebuilds": 0}
 
-    # ---- tree-op adapters: one call site per op ----
+    # ---- tree-op adapters: one call site per op, sharded or not ----
     @property
     def tree(self):
         """The serving tree — always the current published version."""
@@ -116,29 +131,62 @@ class PrefixCache:
         return self.tree.config
 
     def _leaf_count(self) -> int:
+        if self._shard is not None:
+            return sum(int(t.arrays.leaf_count) for t in self.tree.shards)
         return int(self.tree.arrays.leaf_count)
 
     def _key_headroom_ok(self, n_new: int) -> bool:
-        """Can the pool absorb ``n_new`` appends without a compact?"""
+        """Can the pool absorb ``n_new`` appends without a compact?
+        Sharded mode is conservative: assumes the whole batch routes to the
+        fullest shard."""
+        if self._shard is not None:
+            worst = max(int(t.arrays.key_count) for t in self.tree.shards)
+            return worst + n_new <= self._cfg.key_cap
         return int(self.tree.arrays.key_count) + n_new <= self._cfg.key_cap
 
     def _lookup(self, kb, kl):
+        if self._shard is not None:
+            # degraded lanes (report.degraded) serve from the last-barrier
+            # snapshot: possibly-stale hits beat refusing the request
+            return self._shard.lookup_batch(self.tree, kb, kl,
+                                            engine=self.engine,
+                                            faults=self.faults,
+                                            retry=self.retry)
         return B.lookup_batch(self.tree, kb, kl, engine=self.engine)
 
     def _insert(self, kb, kl, vals):
-        tree, rep, _ = B.insert_batch(self.tree, kb, kl, vals,
-                                      engine=self.engine)
+        if self._shard is not None:
+            tree, rep, _ = self._shard.insert_batch(
+                self.tree, kb, kl, vals, engine=self.engine,
+                faults=self.faults, retry=self.retry)
+        else:
+            tree, rep, _ = B.insert_batch(self.tree, kb, kl, vals,
+                                          engine=self.engine)
         self.lifecycle.commit(tree)
         return rep
 
     def _remove(self, kb, kl):
-        tree, rep = B.remove_batch(self.tree, kb, kl, engine=self.engine)
+        if self._shard is not None:
+            tree, rep = self._shard.remove_batch(self.tree, kb, kl,
+                                                 engine=self.engine,
+                                                 faults=self.faults,
+                                                 retry=self.retry)
+        else:
+            tree, rep = B.remove_batch(self.tree, kb, kl,
+                                       engine=self.engine)
         self.lifecycle.commit(tree)
         return rep
 
     def _scan(self, kb, kl, max_items):
-        """-> (kid, val, emitted); kid resolution goes through
+        """-> (kid-or-gkid, val, emitted); kid resolution goes through
         :meth:`_kid_rows`."""
+        if self._shard is not None:
+            kid, val, em, _, failed = self._shard.range_scan(
+                self.tree, kb, kl, max_items=max_items, engine=self.engine,
+                faults=self.faults, retry=self.retry)
+            # a failed lane's emissions are a correct ascending prefix —
+            # the eviction sweep just sees fewer candidates this round
+            return kid, val, em
         kid, val, em, _ = B.range_scan(self.tree, kb, kl,
                                        max_items=max_items,
                                        engine=self.engine)
@@ -146,6 +194,8 @@ class PrefixCache:
 
     def _kid_rows(self, kid):
         """Resolve scan-returned key ids to (bytes, lens)."""
+        if self._shard is not None:
+            return self.tree.key_rows(kid)
         idx = torch.as_tensor(kid, dtype=torch.long, device=self.tree.device)
         return self.tree.arrays.key_bytes[idx], self.tree.arrays.key_lens[idx]
 
@@ -265,6 +315,12 @@ class PrefixCache:
         """
         live = self.tree.n_keys_live
         need = max(1, -(-live // self._cfg.leaf_fill))
+        if self._shard is not None:
+            # a sharded build can never use fewer than one leaf per shard,
+            # so floor `need` there — otherwise a small live set reads as
+            # permanently fragmented and the evict-time trigger thrashes
+            # (rebalance can't drop below n_shards leaves)
+            need = max(need, self.tree.n_shards)
         return self._leaf_count() / need
 
     def compact(self) -> PublishReport:
@@ -273,16 +329,21 @@ class PrefixCache:
         on the tree's device — **off to the side**. The staged tree is
         structurally fsck'd and swapped in only on success; an abort,
         capacity error, or corruption mid-barrier leaves the current tree
-        serving, bit-identical.
+        serving, bit-identical. Sharded mode runs the cross-shard form —
+        ``shard.rebalance`` (DESIGN.md §7) — which also re-balances the
+        partition and re-admits downed shards.
 
         A bulk-synchronous barrier between serving batches — cached page
         ids (the tree *values*) survive, but key ids/leaf ids/versions
         from before the barrier are invalidated, which is fine here:
         match() re-traverses from scratch every batch. Returns a
         ``core.lifecycle.PublishReport``; on success ``rep.aux`` is the
-        build report (``n_live``/``reclaimed``).
+        build or rebalance report (both expose ``n_live``/``reclaimed``).
         """
-        rep = self.lifecycle.rebuild(label="compact")
+        if self._shard is not None:
+            rep = self.lifecycle.rebalance(label="compact")
+        else:
+            rep = self.lifecycle.rebuild(label="compact")
         if rep.ok:
             self.stats["rebuilds"] += 1
         return rep

@@ -24,11 +24,12 @@ from repro_torch.kernels.feature_branch import ops as k3
 from repro_torch.kernels.fused_scan import ops as scan_ops
 from repro_torch.kernels.leaf_probe import cuda as k4cuda
 from repro_torch.kernels.leaf_probe import ops as k4
+from repro_torch.shard import place_shard
 
 from chip_smoke import (K5_BOUND, K5_CASES, int_keys, k3_vs_plain,
                         k4_vs_plain, k5_sweep, k5_vs_plain, kernel_vs_plain,
                         scan_kernel_vs_plain, stale_parents,
-                        tree_diffs, tree_to, url_keys, ycsb_keys)
+                        tree_diffs, url_keys, ycsb_keys)
 from test_torch_level_edges import K3_SHAPES, k3_edge_inputs, k4_edge_inputs
 from test_torch_tie_keys import tie_scan_tree
 
@@ -268,7 +269,7 @@ def test_cuda_insert_matches_cpu(cuda_device, ns):
                       np.arange(rows.size, dtype=np.int32), target="cuda")
     mask = np.random.default_rng(ns).random(1000) < 0.7
     out = []
-    for t in (card, tree_to(card, "cpu")):
+    for t in (card, place_shard(card, "cpu")):
         eng = TraversalEngine("fused")
         reps, rounds = [], []
         for lo in (0, 1000):
@@ -740,3 +741,107 @@ def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take(
         k5cuda.launch(q.permute(0, 2, 1, 3), kv.permute(0, 2, 1, 3),
                       kv.permute(0, 2, 1, 3), n_rep=2, scale=0.25, kv_len=9,
                       causal=True, window=0, prefix_len=0)
+
+
+# ------------------------------------------------------------------ shards
+
+def _shard_pair(kind, n=6000, seed=9):
+    """The same keys in 4 range shards on the card and on the CPU (device
+    build, one shared config), and fresh keys to insert."""
+    from repro_torch import shard as S
+    kb, kl = GEN[kind](n + 800, seed)
+    perm = np.random.default_rng(seed).permutation(n + 800)
+    kb, kl = kb[perm], kl[perm]
+    cfg = TreeConfig.plan(max_keys=int(2.5 * n), key_width=kb.shape[1])
+    vals = np.arange(n, dtype=np.int32)
+    out = [S.sharded_build(KeySet(kb[:n], kl[:n]), vals, 4, device=True,
+                           cfg=cfg, target=d) for d in ("cuda", "cpu")]
+    return out, kb, kl, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ("ycsb", "url"))
+def test_cuda_sharded_ops_match_cpu(cuda_device, kind):
+    """Routed lookups, inserts, updates, removes, cross-shard scans and
+    rebalance on 4 shards on ``cuda:0`` (K1 and K2) equal the same ops on
+    the CPU copy (their plain versions): every output, report and shard
+    array."""
+    from repro_torch import shard as S
+    (card, cpu), kb, kl, n = _shard_pair(kind)
+    eng = TraversalEngine("fused")
+    rng = np.random.default_rng(1)
+    q = rng.integers(0, n + 800, 2048)
+    qb, ql = kb[q].copy(), kl[q]
+    qb[::5, -1] ^= 0xA5
+    new = np.arange(n, n + 800)
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            assert a.is_cuda and torch.equal(a.cpu(), b)
+        elif hasattr(a, "_fields"):
+            for f in a._fields:
+                same(getattr(a, f), getattr(b, f))
+        elif isinstance(a, tuple):
+            for x, y in zip(a, b):
+                same(x, y)
+        else:
+            assert a == b
+
+    def trees(a, b):
+        for x, y in zip(a.shards, b.shards):
+            assert tree_diffs(x, y) == []
+
+    outs = []
+    for st in (card, cpu):
+        o = [S.lookup_batch(st, qb, ql, engine=eng)]
+        st, rep, r = S.insert_batch(st, kb[new], kl[new],
+                                    new.astype(np.int32), engine=eng)
+        o.append((rep, r))
+        st, rep = S.update_batch(st, qb, ql, np.arange(2048, dtype=np.int32),
+                                 engine=eng)
+        o.append(rep)
+        st, rep = S.remove_batch(st, qb[::3], ql[::3], engine=eng)
+        o.append(rep)
+        for m in (1, 50, 700):
+            o.append(S.range_scan(st, qb, ql, max_items=m, engine=eng))
+        o.append(st.key_rows(o[-1][0]))
+        st2, rb = S.rebalance(st)
+        o.append((rb, S.lookup_batch(st2, qb, ql, engine=eng)))
+        outs.append((o, st, st2))
+    (oc, sc, sc2), (oh, sh, sh2) = outs
+    same(tuple(oc), tuple(oh))
+    trees(sc, sh)
+    trees(sc2, sh2)
+    assert int(oc[6][2].max()) == 700 and bool((oc[6][2] > 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_k2_parked_lanes_match_plain(cuda_device):
+    """K2 on the batches the cross-shard scan gives each shard — lanes not
+    active there parked on an all-0xFF start of length key_width, on clean
+    and dirtied shards — equals its plain version bit for bit."""
+    from repro_torch import shard as S
+    from chip_smoke import _Recorder
+    (card, _), kb, kl, n = _shard_pair("ycsb")
+    eng = TraversalEngine("fused")
+    rng = np.random.default_rng(2)
+    for dirty in (False, True):
+        if dirty:
+            new = np.arange(n, n + 800)
+            card, _, _ = S.insert_batch(card, kb[new], kl[new],
+                                        new.astype(np.int32), engine=eng)
+        q = rng.integers(0, n, 1024)
+        qb, ql = kb[q].copy(), kl[q]
+        qb[::3, -1] ^= 0xA5
+        with _Recorder() as rec:
+            S.range_scan(card, qb, ql, max_items=300, engine=eng)
+        parked = 0
+        for t, sqb, sql, mi in rec.calls:
+            parked += int(((sql == 24) & (sqb == 0xFF).all(1)).sum())
+            assert scan_kernel_vs_plain(t, sqb, sql, mi) == 0
+        assert parked > 0 and len(rec.calls) > 1
+    # a batch of parked lanes only
+    park = torch.full((512, 24), 0xFF, dtype=torch.uint8, device="cuda")
+    plen = torch.full((512,), 24, dtype=torch.int32, device="cuda")
+    for t in card.shards:
+        assert scan_kernel_vs_plain(t, park, plen, 50) == 0

@@ -1,5 +1,7 @@
 """The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX or anything of the reference package."""
+``chip_smoke.py`` nor the port's tools (``tools/chaos_sweep_torch.py``,
+``tools/tree_bench.py``, ``tools/k5_bench.py``), imports JAX or anything
+of the reference package."""
 import ast
 import os
 import pkgutil
@@ -11,6 +13,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")
 FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
+TOOLS = ("chaos_sweep_torch", "tree_bench", "k5_bench")
 
 
 def _port_modules():
@@ -28,11 +31,15 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
     for m in ("repro_torch.kernels.flash_attention.cuda",
               "repro_torch.serving.engine", "repro_torch.models.lm",
               "repro_torch.configs.yi_9b", "repro_torch.launch.serve",
-              "repro_torch.core.lifecycle"):
+              "repro_torch.core.lifecycle", "repro_torch.core.protocol",
+              "repro_torch.shard.ops", "repro_torch.shard.router"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'tools')!r})\n"
+        f"for m in {TOOLS!r}:\n"
         "    importlib.import_module(m)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -49,6 +56,8 @@ def _sources():
             if fn.endswith(".py"):
                 yield os.path.join(dirpath, fn)
     yield os.path.join(ROOT, "chip_smoke.py")
+    for t in TOOLS:
+        yield os.path.join(ROOT, "tools", t + ".py")
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),

@@ -226,11 +226,6 @@ def test_prefix_cache_compact_abort_keeps_serving(backend):
     assert pc.match([kept]) == ref
 
 
-def test_prefix_cache_shards_wait_for_the_shard_layer():
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        PrefixCache(n_shards=2, target="cpu")
-
-
 # ------------------------------------------------------------------ engine
 
 def _record(eng, log):
