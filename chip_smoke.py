@@ -104,7 +104,19 @@ launch of the flash-attention kernel K5):
 14. ``shard-cache``: the serve phase's recorded cache calls replayed on a
     ``PrefixCache(n_shards=4)`` with the ``"fused"`` engine on the card and
     on the CPU: every answer equal to the other's and to the unsharded
-    cache's, pools, stats and every shard's arrays equal.
+    cache's, pools, stats and every shard's arrays equal;
+15. ``train``: ``launch/train.py::train_loop`` on yi-9b at full width, its
+    depth cut to 8 layers (:data:`TRAIN_RUN`), AdamW, 12 steps of 2 x 4,096
+    tokens in 2 microbatches. K5 must launch once per layer, microbatch and
+    step; the loss must stay finite and fall; on layer 0's real q, k, v,
+    K5's forward must equal its plain version within :func:`k5_tolerance`
+    and the recompute backward's dq, dk, dv autograd through the plain
+    version within :func:`k5_grad_tolerance`; a card step must equal a CPU
+    step from one state within :data:`TRAIN_STEP_BOUND`; a restart after
+    an injected failure must give the uninterrupted run's losses and a
+    checkpoint that restores equal. It prints the step's ms, tokens/s,
+    ``train_mfu``, peak device memory, and K5's forward and the recompute
+    backward's ms at the training shape.
 
 Each phase prints one JSON line. The line before the last holds the
 kernels table; the last line is ``{"ok": true, "device": ...}``. The script
@@ -112,7 +124,7 @@ exits non-zero, with no result, when there is no CUDA device, when the
 port's sources are not beside it, or when any check fails. Run:
 ``python3 chip_smoke.py``; ``rehearse_serve()`` runs the serve phase's
 checks on the CPU at SMOKE size, ``rehearse_shard()`` the shard phases'
-at 6,000 keys.
+at 6,000 keys, ``rehearse_train()`` the train phase's at SMOKE size.
 """
 from __future__ import annotations
 
@@ -2465,6 +2477,446 @@ def _leaves(tree):
             yield v
 
 
+# ------------------------------------------------------------------ training
+
+TRAIN_ARCH = "yi-9b"
+H100_BF16_PEAK = 989.4e12     # H100 SXM dense bf16 tensor-core FLOP/s, data sheet
+# The trained configuration: yi-9b at full width (d_model 4096, GQA 32/4,
+# head dim 128, d_ff 11,008, vocab 64,000, bf16 params, AdamW with float32
+# m, v and master: 16 bytes a parameter), depth cut from 48 layers to 8
+# (8.83B parameters would need 141 GB of state, 8 layers' 1.91B 30.5 GB);
+# train_4k's 4,096 tokens a sequence, its global batch of 256 cut to 2 in
+# 2 microbatches; 12 steps.
+TRAIN_RUN = dict(n_layers=8, seq=4096, batch=2, n_micro=2, steps=12)
+# (d) the card against the CPU: yi-9b's SMOKE widths and 2 layers, one
+# step of 2 sequences of 2,304 tokens (S*T above FLASH_THRESH: K5 runs on
+# the card, _sdpa_flash on the CPU) in 2 microbatches.
+TRAIN_PARITY = dict(seq=2304, batch=2, n_micro=2)
+# (e) the restart path: SMOKE size, 12 steps of 2 x 64 tokens, a
+# checkpoint every 4 steps, a worker lost at step 6.
+TRAIN_RESTART = dict(seq=64, batch=2, steps=12, save_every=4, fail_at=6)
+
+K5_GRAD_BOUND = (
+    "per element, with the exact float32 softmax weights P, dP = g v^T, "
+    "D = rowsum(P dP), dS = P (dP - D) and u = 2^-8 (bf16; 2^-24 and "
+    "+1e-4 max|want| for float32): 2^-6 |want| + 8 x the rounding std of "
+    "the bf16 products (u sqrt(sum t^2) over each sum's terms t), of D and "
+    "of the tile-max path, + u x the tile partials' magnitudes")
+TRAIN_STEP_BOUND = (
+    "card vs CPU, one bf16 AdamW step: loss and ce within 2e-3 relative, "
+    "grad_norm within 3e-2 relative, lr within 1e-6; every parameter element "
+    "within 2 lr + 2^-7 |cpu| and each tensor's mean |diff| within lr / 4")
+TRAIN_RESTART_BOUND = "each step's loss within 1e-3 relative of the uninterrupted run's"
+
+
+def k5_grad_tolerance(q, k, v, g, want, *, scale, causal, window=0,
+                      prefix_len=0, q_chunk=1024, kv_chunk=1024):
+    """The bound the flash-attention Function's gradients (the recompute
+    backward through ``_sdpa_flash``) are held to against
+    autograd through the plain version in float32, per element: flat
+    q [BH,S,hd], k/v [BH,T,hv] (kv repeated), the output cotangent g
+    [BH,S,hv] and ``want`` = {"dq", "dk", "dv"} (flat, float32).
+
+    The backward recomputes in float32 from exact bf16 products but rounds
+    to bf16 (unit u = 2^-8 of each value): the weights p before p.v, each
+    tile's p.v sum, the cotangent of p.v's output, dP = g.v^T, and each q
+    chunk's dk and dv sums. With P, dP, D = Σ_j P·dP and dS = P·(dP - D)
+    exact:
+    - 2^-6·|want|: the final rounding of both sides' gradients;
+    - 8·u·sqrt(Σ t²) over each sum's terms t (dv: P·g; dq: P·|dP|·k; dk:
+      P·|dP|·q): independent roundings with no common sign, whose sum has
+      a standard deviation below u·sqrt(Σ t²)/sqrt(3) — the bound is ~14;
+    - the error of D (a row's dO·O, O from rounded weights and partials),
+      common to the row: 8·sD·|P·k| in dq, 8·sqrt(Σ_i (P·sD·q)²) in dk;
+    - the tile-max path: autograd through the running max carries a row's
+      rounding noise e = u·sqrt(Σ_j (P·dP)²) + sD to each tile's argmax
+      key (exactly zero in exact arithmetic): 8·e·|k| there in dq, and
+      8·Σ e·|q| over the rows whose max a key is, in dk;
+    - u·Σ_chunks |partial|: dk's and dv's q-chunk sums, rounded each.
+    Heads are bounded one at a time; the caller sums dk's and dv's bounds
+    over a kv head's query heads."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ref import NEG, key_mask
+    BH, S, _ = q.shape
+    T = k.shape[1]
+    bf16 = q.dtype == torch.bfloat16
+    u = 2.0 ** -8 if bf16 else 2.0 ** -24
+    m = key_mask(S, T, causal, window, prefix_len, q.device)
+    live = m.any(-1)[:, None]
+    nk = -(-T // kv_chunk)
+    Tp = nk * kv_chunk
+    tol = {n: torch.empty(w.shape, device=q.device) for n, w in want.items()}
+
+    def chunks(w, x):        # Σ over q chunks of |w_chunk @ x_chunk|
+        return sum((w[:, :, c:c + q_chunk] @ x[:, c:c + q_chunk]).abs()
+                   for c in range(0, S, q_chunk))
+
+    for i in range(0, BH, 8):                 # 8 heads' [S, T] at a time
+        sl = slice(i, i + 8)
+        qf, kf, vf, gf = (t[sl].float() for t in (q, k, v, g))
+        b = qf.shape[0]
+        s = torch.where(m, torch.einsum("bsh,bth->bst", qf, kf) * scale, NEG)
+        P = torch.softmax(s, dim=-1) * live
+        dP = gf @ vf.transpose(1, 2)
+        D = (gf * (P @ vf)).sum(-1, keepdim=True)
+        dS = P * (dP - D)
+        Pd = P * dP.abs()
+        del dP
+        # each kv tile's p.v partial, as the forward rounds it
+        parts = torch.einsum(
+            "bsnk,bnkh->bsnh", F.pad(P, (0, Tp - T)).reshape(b, S, nk, -1),
+            F.pad(vf, (0, 0, 0, Tp - T)).reshape(b, nk, kv_chunk, -1))
+        sD = u * torch.sqrt((gf * gf * ((P * P) @ (vf * vf)
+                                        + parts.square().sum(2)))
+                            .sum(-1, keepdim=True))
+        e = u * torch.sqrt((Pd * Pd).sum(-1, keepdim=True)) + sD
+        # how often each key is a row's max in its tile
+        sp = F.pad(s, (0, Tp - T), value=NEG).reshape(b, S, nk, kv_chunk)
+        arg = sp.argmax(-1) + torch.arange(nk, device=q.device) * kv_chunk
+        hit = torch.zeros_like(s)
+        hit.scatter_add_(2, arg.clamp(max=T - 1),
+                         (sp.amax(-1) > NEG / 2).float())
+        del s, sp
+        Pt = P.transpose(1, 2)
+        tol["dv"][sl] = (8 * u * torch.sqrt((Pt * Pt) @ (gf * gf))
+                         + u * chunks(Pt, gf))
+        tol["dq"][sl] = 8 * scale * (
+            u * torch.sqrt((Pd * Pd) @ (kf * kf)) + sD * (P @ kf).abs()
+            + e * (hit @ kf.abs()))
+        tol["dk"][sl] = scale * (8 * (
+            u * torch.sqrt((Pd * Pd).transpose(1, 2) @ (qf * qf))
+            + torch.sqrt((P * sD).square().transpose(1, 2) @ (qf * qf))
+            + (hit * e).transpose(1, 2) @ qf.abs())
+            + u * chunks(dS.transpose(1, 2), qf))
+    for n, w in want.items():
+        tol[n] += 2.0 ** -6 * w.abs()
+        if not bf16:
+            tol[n] += 1e-4 * float(w.abs().max())
+    return tol
+
+
+def k5_grad_check(q, k, v, g, mask, n_rep: int, scale: float) -> dict:
+    """``ops.flash_sdpa`` under autograd on q [B,S,H,hd], k/v [B,T,Hk,hv]
+    for the output cotangent g [B,S,H*hv]. ``forward``: its output (on the
+    card, one K5 launch) against the plain version, :func:`k5_check`.
+    ``backward``: dq, dk, dv of the recompute backward, which recomputes
+    through the plain tiled path and never reads K5's output, against
+    autograd through ``flash_attention_ref`` in float32, within
+    :func:`k5_grad_tolerance`: each one's max |error|, max error / bound
+    and mean bound / mean |want|, and their worst max error / bound. Each
+    max error / bound is at most 1 to pass."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
+                                                         to_flat)
+    B, S, H, hd = q.shape
+    T, Hk, hv = k.shape[1], k.shape[2], v.shape[-1]
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_sdpa(*ins, mask, n_rep, scale)
+    fwd = k5_check(out.detach(), q, k, v, mask, n_rep, scale)
+    got = torch.autograd.grad(out, ins, g)
+    del out
+    kw = dict(scale=scale, causal=mask.kind == "causal", window=mask.window,
+              prefix_len=mask.prefix_len)
+    flat = to_flat(q, k, v, n_rep)
+    gf = g.reshape(B, S, Hk, n_rep, hv).permute(0, 2, 3, 1, 4) \
+          .reshape(B * H, S, hv)
+    want = {n: torch.empty(t.shape, device=q.device)
+            for n, t in zip(("dq", "dk", "dv"), flat)}
+    for i in range(0, B * H, 8):              # 8 heads' [S, T] at a time
+        ins_f = [t[i:i + 8].float().requires_grad_() for t in flat]
+        o = flash_attention_ref(*ins_f, kv_len=T, **kw)
+        for n, d in zip(("dq", "dk", "dv"),
+                        torch.autograd.grad(o, ins_f, gf[i:i + 8].float())):
+            want[n][i:i + 8] = d
+    tol = k5_grad_tolerance(*flat, gf, want, **kw)
+    unq = lambda t: t.reshape(B, Hk, n_rep, S, -1).permute(0, 3, 1, 2, 4) \
+                     .reshape(B, S, H, -1)
+    unkv = lambda t: t.reshape(B, Hk, n_rep, T, -1).sum(2).permute(0, 2, 1, 3)
+    bwd = {}
+    for n, d, fold in zip(("dq", "dk", "dv"), got, (unq, unkv, unkv)):
+        w, t = fold(want[n]), fold(tol[n])
+        bwd[n] = dict(_err_over_tol(d, w, t),
+                      mean_tol_over_mean_want=float(t.mean()
+                                                    / w.abs().mean()))
+    bwd["max_err_over_tol"] = max(r["max_err_over_tol"] for r in bwd.values())
+    return {"forward": fwd, "backward": bwd}
+
+
+def capture_train_qkv(cfg, seed: int, dev):
+    """q, k, v of layer 0 in the first step of :func:`run_train`'s loop:
+    the parameters ``init_state`` draws from ``seed`` (``lm.init_params``
+    draws first) on the first sequence of ``TokenStream``'s batch 0."""
+    from repro_torch.models import lm
+    from repro_torch.train.data import DataConfig, TokenStream
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    data = TokenStream(DataConfig(vocab=cfg.vocab,
+                                  global_batch=TRAIN_RUN["batch"],
+                                  seq_len=TRAIN_RUN["seq"], seed=seed), cfg)
+    toks = torch.from_numpy(data.batch_at(0)["tokens"][:1]).to(dev)
+    with torch.no_grad():
+        first = dataclasses.replace(cfg, n_layers=1)
+        return capture_qkv(params, first, toks, (0,))[0]
+
+
+def step_compare(got, want, mg, mw, lr: float) -> list:
+    """The failures of one bf16 AdamW step on two devices against
+    :data:`TRAIN_STEP_BOUND`: ``got``/``want`` the params after it,
+    ``mg``/``mw`` its metrics."""
+    from repro_torch.train.tree import tree_paths
+    fails = []
+    for key, rel in (("loss", 2e-3), ("ce", 2e-3), ("grad_norm", 3e-2)):
+        a, b = float(mg[key]), float(mw[key])
+        if not abs(a - b) <= rel * abs(b):
+            fails.append(f"{key} {a} vs {b}")
+    if not abs(float(mg["lr"]) - float(mw["lr"])) <= 1e-6 * float(mw["lr"]):
+        fails.append(f"lr {float(mg['lr'])} vs {float(mw['lr'])}")
+    wants = dict(tree_paths(want))
+    for key, a in tree_paths(got):
+        a, b = a.float().cpu(), wants[key].float().cpu()
+        d = (a - b).abs()
+        if not bool((d <= 2 * lr + 2.0 ** -7 * b.abs()).all()):
+            fails.append(f"{key}: max |diff| {float(d.max())}")
+        if not float(d.mean()) <= lr / 4:
+            fails.append(f"{key}: mean |diff| {float(d.mean())}")
+    return fails
+
+
+def train_parity(seed: int, dev) -> tuple:
+    """Check (d): one ``make_train_step`` step of yi-9b's SMOKE config at
+    :data:`TRAIN_PARITY` from one state on ``dev`` and on the CPU (the CPU
+    runs ``_sdpa_flash``), within :data:`TRAIN_STEP_BOUND`. On the CPU
+    alone it runs the CPU side. Returns (result, failures)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as k5
+    from repro_torch.train import optim as O
+    from repro_torch.train.data import DataConfig, TokenStream
+    from repro_torch.train.train_step import init_state, make_train_step
+    from repro_torch.train.tree import tree_map
+    cfg = get_config(TRAIN_ARCH, smoke=True)
+    ocfg = O.OptConfig(lr=1e-3, warmup=1, total_steps=10)
+    state = init_state(cfg, ocfg, torch.Generator().manual_seed(seed))
+    batch = TokenStream(DataConfig(vocab=cfg.vocab,
+                                   global_batch=TRAIN_PARITY["batch"],
+                                   seq_len=TRAIN_PARITY["seq"], seed=seed),
+                        cfg).batch_at(0)
+    runs, fails = {}, []
+    for d in dict.fromkeys([str(dev), "cpu"]):
+        st = tree_map(lambda t: t.to(d, copy=True), state)
+        b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        n0 = k5.LAUNCHES
+        st, m = make_train_step(cfg, ocfg, n_micro=TRAIN_PARITY["n_micro"])(
+            st, b)
+        runs[d] = (st["params"], m, k5.LAUNCHES - n0)
+    cpu_m = runs["cpu"][1]
+    res = {"cpu_loss": float(cpu_m["loss"]),
+           "cpu_grad_norm": float(cpu_m["grad_norm"])}
+    if not all(torch.isfinite(v).all() for v in cpu_m.values()):
+        fails.append(f"non-finite CPU metrics {cpu_m}")
+    if str(dev) != "cpu":
+        p, m, launched = runs[str(dev)]
+        want = cfg.n_layers * TRAIN_PARITY["n_micro"]
+        if launched != want:
+            fails.append(f"card step: {launched} K5 launches, expected {want}")
+        fails += step_compare(p, runs["cpu"][0], m, cpu_m, ocfg.lr)
+        res.update(card_loss=float(m["loss"]),
+                   card_grad_norm=float(m["grad_norm"]), k5_launches=launched)
+    return res, fails
+
+
+def train_restart(seed: int, dev) -> tuple:
+    """Check (e): ``train_loop`` at SMOKE size on ``dev`` with checkpoints
+    in a temporary directory and a failure injected: exactly one restart,
+    every step's loss equal to an uninterrupted run's within
+    :data:`TRAIN_RESTART_BOUND`, and a saved state restored (onto a meta
+    template) to equal tensors. Returns (result, failures)."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import optim as O
+    from repro_torch.train.train_step import state_template
+    from repro_torch.train.tree import tree_paths
+    cfg = get_config(TRAIN_ARCH, smoke=True)
+    r = TRAIN_RESTART
+    mesh = make_local_mesh(device=str(dev))
+    kw = dict(save_every=r["save_every"], mesh=mesh, seed=seed,
+              log_every=10 ** 9)
+    fails = []
+    with tempfile.TemporaryDirectory() as tmp:
+        hurt = train_loop(cfg, r["steps"], r["batch"], r["seq"],
+                          ckpt_dir=os.path.join(tmp, "a"),
+                          inject_failure=r["fail_at"], **kw)
+        whole = train_loop(cfg, r["steps"], r["batch"], r["seq"], **kw)
+        ocfg = O.OptConfig(lr=1e-3, warmup=min(20, r["steps"] // 5 or 1),
+                           total_steps=r["steps"])
+        back, step = CK.restore(os.path.join(tmp, "a"),
+                                state_template(cfg, ocfg), device=dev)
+    if len(hurt["restarts"]) != 1:
+        fails.append(f"{len(hurt['restarts'])} restarts, expected 1")
+    worst = 0.0
+    for s in range(r["steps"]):
+        a, b = hurt["losses"].get(s), whole["losses"][s]
+        worst = max(worst, abs(a - b) / abs(b) if a is not None else np.inf)
+    if not worst <= 1e-3:
+        fails.append(f"losses after the restart off by {worst} (relative)")
+    saved = dict(tree_paths(hurt["state"]))
+    diff = [k for k, t in tree_paths(back) if not torch.equal(t, saved[k])]
+    if step != r["steps"] or diff:
+        fails.append(f"restored step {step}, unequal tensors {diff[:5]}")
+    return dict(restarts=hurt["restarts"], max_loss_rel_diff=worst,
+                losses=[hurt["losses"][s] for s in range(r["steps"])],
+                restored_step=step, restored_equal=not diff), fails
+
+
+def k5_train_timing(q, k, v, g, n_rep: int, runs: int) -> dict:
+    """K5's forward at the training shape and the recompute backward
+    (``ops.flash_sdpa_backward``) on the same inputs, CUDA-event medians;
+    the forward's bound as :func:`k5_bound` counts it."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.attention import CAUSAL
+    B, S, H, hd = q.shape
+    T, Hk, hv = k.shape[1], k.shape[2], v.shape[-1]
+    scale = hd ** -0.5
+    with torch.no_grad():
+        fwd = lambda: ops.flash_sdpa(q, k, v, CAUSAL, n_rep, scale)
+        bwd = lambda: ops.flash_sdpa_backward(q, k, v, g, CAUSAL, n_rep,
+                                              scale)
+        fwd(), bwd()
+        f_ms, f_all = _event_ms(fwd, runs)
+        b_ms, b_all = _event_ms(bwd, max(3, runs // 5))
+    b_bound, b_by, flops, nbytes = k5_bound(B, S, T, H, Hk, hd, hv,
+                                            ("causal", 0, 0), q.element_size())
+    return dict(forward_ms=f_ms, forward_min_ms=min(f_all),
+                forward_bound_ms=b_bound, forward_bound_by=b_by,
+                forward_flops=flops, backward_ms=b_ms,
+                backward_min_ms=min(b_all), runs=runs,
+                shape=dict(B=B, S=S, T=T, H=H, Hk=Hk, hd=hd,
+                           dtype=str(q.dtype), mask="causal"))
+
+
+def run_train(*, seed, runs=25, device="cuda"):
+    """The ``train`` phase: (c) on the real q, k, v of layer 0, K5's
+    forward at the training shape against its plain version and the
+    recompute backward's gradients against autograd through it; the main
+    path, ``train_loop`` on yi-9b at full width (:data:`TRAIN_RUN`: (a) K5 launches = layers x
+    microbatches x steps, (b) every loss finite and the last 3 below the
+    first 3); (d) :func:`train_parity`; (e) :func:`train_restart`; the
+    step's time, tokens/s, ``train_mfu``, peak memory, and K5's forward
+    and backward times at the training shape. Returns the phase line."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as k5
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.attention import CAUSAL, FLASH_THRESH
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    r = TRAIN_RUN
+    cfg = get_config(TRAIN_ARCH, n_layers=r["n_layers"])
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    fails = []
+    # (c) K5's forward and the recompute backward on layer 0's q, k, v of
+    # the first step
+    q, k, v = capture_train_qkv(cfg, seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    g = (torch.randn(q.shape[:2] + (q.shape[2] * v.shape[-1],),
+                     generator=gen, device=dev) * 1e-3).to(q.dtype)
+    k5c = k5_grad_check(q, k, v, g, CAUSAL, n_rep, cfg.hd ** -0.5)
+    if not k5c["forward"]["max_err_over_tol"] <= 1.0:
+        fails.append(f"K5's forward at the training shape: {k5c['forward']}")
+    if not k5c["backward"]["max_err_over_tol"] <= 1.0:
+        fails.append(f"the recompute backward's gradients: {k5c['backward']}")
+    timing = k5_train_timing(q, k, v, g, n_rep, runs) if on_card else None
+    del q, k, v, g
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    # the main path
+    k5.LAUNCHES = 0                      # counts from this path only
+    out = train_loop(cfg, r["steps"], r["batch"], r["seq"], seed=seed,
+                     n_micro=r["n_micro"], mesh=make_local_mesh(
+                         device=str(dev)), log_every=10 ** 9)
+    launches = k5.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    n_params = sum(t.numel() for t in _leaves(out["state"]["params"]))
+    del out["state"]
+    losses = [out["losses"][s] for s in range(r["steps"])]
+    want = cfg.n_layers * r["n_micro"] * r["steps"] \
+        if r["seq"] ** 2 > FLASH_THRESH else 0
+    if on_card and launches != want:
+        fails.append(f"K5 launches {launches}, expected {want}")
+    if not all(np.isfinite(losses)):
+        fails.append(f"non-finite loss: {losses}")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        fails.append(f"the loss did not fall: {losses}")
+    first_ms, *step_ms = (d * 1e3 for d in out["durations"])
+    if on_card:
+        torch.cuda.empty_cache()
+    parity, f = train_parity(seed, dev)
+    fails += [f"card vs CPU step: {x}" for x in f]
+    restart, f = train_restart(seed, dev)
+    fails += [f"restart: {x}" for x in f]
+    tokens = r["batch"] * r["seq"]
+    med = statistics.median(step_ms)
+    res = {"phase": "train", "arch": cfg.name, "layers": cfg.n_layers,
+           "params": n_params, "train_run": r, "losses": losses,
+           "k5_launches": launches, "expected_k5_launches": want,
+           "first_step_ms": first_ms, "step_ms": step_ms,
+           "peak_bytes": peak, "k5_forward": k5c["forward"],
+           "k5_forward_tolerance": K5_BOUND,
+           "recompute_backward_grads": k5c["backward"],
+           "recompute_backward_tolerance": K5_GRAD_BOUND, "card_vs_cpu": parity,
+           "card_vs_cpu_tolerance": TRAIN_STEP_BOUND, "restart": restart,
+           "restart_tolerance": TRAIN_RESTART_BOUND, "k5_train": timing,
+           "phase_s": time.perf_counter() - t_phase, "fails": fails}
+    emit(res)
+    emit({"metric": "train_step_ms", "value": med, "min": min(step_ms),
+          "max": max(step_ms), "steps": len(step_ms),
+          "clock": "host, each step ending in float(loss), which waits for "
+                   "the card (train_loop's durations); median of the steps "
+                   "after the first"})
+    emit({"metric": "train_tokens_per_s", "value": tokens / med * 1e3})
+    emit({"metric": "train_mfu", "value": 6 * n_params * tokens
+          / (med / 1e3) / H100_BF16_PEAK,
+          "flops_per_step": 6 * n_params * tokens, "peak_flops_per_s":
+          H100_BF16_PEAK, "peak_source": "H100 SXM data sheet, dense bf16",
+          "counts": "6 x parameters x tokens (no attention term)"})
+    emit({"metric": "train_peak_device_bytes", "value": peak})
+    if timing is not None:
+        emit({"metric": "k5_train_ms", **timing})
+    if fails:
+        raise AssertionError("train: " + "; ".join(fails))
+    return res
+
+
+def rehearse_train(seed=0):
+    """The ``train`` phase's checks on the CPU: (b) on yi-9b's SMOKE
+    config through ``train_loop`` (12 steps of 2 x 64 tokens in 2
+    microbatches), (d) without the card side, (e) at SMOKE size. Returns
+    ``{"losses", "card_vs_cpu", "restart"}``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import train_loop
+    dev = torch.device("cpu")
+    cfg = get_config(TRAIN_ARCH, smoke=True)
+    out = train_loop(cfg, TRAIN_RUN["steps"], TRAIN_RUN["batch"], 64,
+                     seed=seed, n_micro=TRAIN_RUN["n_micro"],
+                     mesh=make_local_mesh(device="cpu"), log_every=10 ** 9)
+    losses = [out["losses"][s] for s in range(TRAIN_RUN["steps"])]
+    fails = []
+    if not (all(np.isfinite(losses))
+            and np.mean(losses[-3:]) < np.mean(losses[:3])):
+        fails.append(f"losses {losses}")
+    parity, f = train_parity(seed, dev)
+    fails += f
+    restart, f = train_restart(seed, dev)
+    fails += f
+    if fails:
+        raise AssertionError("train rehearsal: " + "; ".join(fails))
+    return {"losses": losses, "card_vs_cpu": parity, "restart": restart}
+
+
 # -------------------------------------------------------------------- main
 
 def _smi() -> str:
@@ -2569,6 +3021,10 @@ def main(argv=None) -> int:
     shc_out = run_shard_cache(s_log, n_pages=s_out["serve_config"]["n_pages"],
                               block_tokens=s_out["serve_config"][
                                   "block_tokens"], device=dev)
+    del s_log
+    torch.cuda.empty_cache()
+    t_out = run_train(seed=args.seed, runs=args.runs)
+    k5_checks.append(t_out["k5_forward"])
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "fused_descent", "route": "cuda",
@@ -2615,10 +3071,18 @@ def main(argv=None) -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
-        "launches": s_out["launches"]["k5"],
+        "launches": s_out["launches"]["k5"] + t_out["k5_launches"],
+        "launches_by_path": {"serve": s_out["launches"]["k5"],
+                             "train": t_out["k5_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in k5_checks),
         "max_err_over_tol": max(r["max_err_over_tol"] for r in k5_checks),
         "tolerance": K5_BOUND,
+        "recompute_backward_max_abs_err": {
+            n: t_out["recompute_backward_grads"][n]["max_abs_err"]
+            for n in ("dq", "dk", "dv")},
+        "recompute_backward_tolerance": K5_GRAD_BOUND,
+        "train_forward_ms": t_out["k5_train"]["forward_ms"],
+        "train_backward_ms": t_out["k5_train"]["backward_ms"],
         "ms": k5t["ms"], "plain_ms": k5t["plain_ms"],
         "bound_ms": k5t["bound_ms"], "bound_by": k5t["bound_by"],
         "library_ms": k5t["library_ms"],

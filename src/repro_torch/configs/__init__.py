@@ -1,6 +1,5 @@
 """Architecture registry: ``get_config(<id>)`` resolves here (a copy of
-``repro.configs``; the shape sets of ``configs/common.py`` come with the
-training slice)."""
+``repro.configs``); the shape sets are in ``configs/common.py``."""
 from __future__ import annotations
 
 import dataclasses

@@ -152,53 +152,60 @@ def _sdpa_small(q, k, v, mask: MaskSpec, n_rep: int, scale=None):
 def _sdpa_flash(q, k, v, mask: MaskSpec, n_rep: int, scale=None,
                 q_chunk: int = Q_CHUNK, kv_chunk: int = KV_CHUNK):
     """Online-softmax tiling; [S,T] logits never materialize. The
-    reference's two ``lax.scan``s become two Python loops."""
-    B, S, H, hd = q.shape
+    reference's outer ``lax.scan`` over q chunks becomes a loop over
+    :func:`_flash_rows`, one call a chunk (rows are independent, so the
+    last chunk is not padded); its inner scan is the loop inside."""
+    S = q.shape[1]
+    qc = min(q_chunk, S)
+    return torch.cat([_flash_rows(q[:, s0:s0 + qc], k, v, mask, n_rep,
+                                  scale, s0, kv_chunk)
+                      for s0 in range(0, S, qc)], dim=1)
+
+
+def _flash_rows(q, k, v, mask: MaskSpec, n_rep: int, scale, q0: int,
+                kv_chunk: int = KV_CHUNK):
+    """Rows ``q0 .. q0 + qc`` of :func:`_sdpa_flash`: q [B,qc,H,hd] those
+    rows' queries, k/v [B,T,Hk,hv] every key -> [B,qc,H*hv]. The masks
+    take absolute row indices from ``q0``. The flash-attention backward
+    (``kernels.flash_attention.ops``) differentiates one such chunk at a
+    time."""
+    B, qc, H, hd = q.shape
     T, Hk = k.shape[1], k.shape[2]
     hv = v.shape[-1]
     scale = scale or hd ** -0.5
     dev = q.device
-    qc = min(q_chunk, S)
     kc = min(kv_chunk, T)
-    nq, nk = -(-S // qc), -(-T // kc)
-    Sp, Tp = nq * qc, nk * kc
-    qg = F.pad(q, (0, 0, 0, 0, 0, Sp - S))
+    nk = -(-T // kc)
+    Tp = nk * kc
     kg = F.pad(k, (0, 0, 0, 0, 0, Tp - T))
     vg = F.pad(v, (0, 0, 0, 0, 0, Tp - T))
-    qg = qg.reshape(B, nq, qc, Hk, n_rep, hd).permute(1, 0, 3, 4, 2, 5)
+    qt = q.reshape(B, qc, Hk, n_rep, hd).permute(0, 2, 3, 1, 4).float()
     kg = kg.reshape(B, nk, kc, Hk, hd).permute(1, 0, 3, 2, 4)
     vg = vg.reshape(B, nk, kc, Hk, hv).permute(1, 0, 3, 2, 4)
-    # qg [nq, B, Hk, rep, qc, hd]; kg/vg [nk, B, Hk, kc, hd]
-    tiles = []
-    for iq in range(nq):
-        qt = qg[iq].float()
-        qidx = iq * qc + torch.arange(qc, device=dev)
-        m_run = torch.full((B, Hk, n_rep, qc), NEG, dtype=torch.float32,
-                           device=dev)
-        l_run = torch.zeros((B, Hk, n_rep, qc), dtype=torch.float32,
-                            device=dev)
-        acc = torch.zeros((B, Hk, n_rep, qc, hv), dtype=torch.float32,
-                          device=dev)
-        for jk in range(nk):
-            kt, vt = kg[jk], vg[jk]
-            kidx = jk * kc + torch.arange(kc, device=dev)
-            s = torch.einsum("bkrqh,bkch->bkrqc", qt, kt.float()) * scale
-            tm = mask.tile(qidx, kidx) & (kidx < T)[None, :]
-            s = torch.where(tm[None, None, None], s, NEG)
-            m_new = torch.maximum(m_run, s.amax(-1))
-            p = torch.where(tm[None, None, None],
-                            torch.exp(s - m_new[..., None]), 0.0)
-            corr = torch.exp(m_run - m_new)
-            l_run = l_run * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bkrqc,bkch->bkrqh", p.to(vt.dtype), vt).float()
-            m_run = m_new
-        out = acc / torch.clamp(l_run, min=1e-20)[..., None]
-        tiles.append(out.to(q.dtype))
-    # tiles [nq, B, Hk, rep, qc, hv] -> [B, S, H*hv]
-    out = torch.stack(tiles).permute(1, 0, 4, 2, 3, 5).reshape(
-        B, Sp, Hk * n_rep * hv)
-    return out[:, :S]
+    # qt [B, Hk, rep, qc, hd]; kg/vg [nk, B, Hk, kc, hd]
+    qidx = q0 + torch.arange(qc, device=dev)
+    m_run = torch.full((B, Hk, n_rep, qc), NEG, dtype=torch.float32,
+                       device=dev)
+    l_run = torch.zeros((B, Hk, n_rep, qc), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hk, n_rep, qc, hv), dtype=torch.float32,
+                      device=dev)
+    for jk in range(nk):
+        kt, vt = kg[jk], vg[jk]
+        kidx = jk * kc + torch.arange(kc, device=dev)
+        s = torch.einsum("bkrqh,bkch->bkrqc", qt, kt.float()) * scale
+        tm = mask.tile(qidx, kidx) & (kidx < T)[None, :]
+        s = torch.where(tm[None, None, None], s, NEG)
+        m_new = torch.maximum(m_run, s.amax(-1))
+        p = torch.where(tm[None, None, None],
+                        torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m_run - m_new)
+        l_run = l_run * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkrqc,bkch->bkrqh", p.to(vt.dtype), vt).float()
+        m_run = m_new
+    out = (acc / torch.clamp(l_run, min=1e-20)[..., None]).to(q.dtype)
+    # [B, Hk, rep, qc, hv] -> [B, qc, H*hv]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, qc, Hk * n_rep * hv)
 
 
 def attn_forward(p: Params, cfg: ModelConfig, x, positions,

@@ -1,11 +1,16 @@
-"""Carry model parameters between the reference and the port.
+"""Carry model parameters, or a whole train state, between the reference
+and the port.
 
-:func:`params_from_numpy` turns a parameter tree given as nested dicts of
-numpy arrays (the reference's pytree after ``jax.device_get``) into the
-port's dict of tensors, key for key; :func:`params_to_numpy` is its
-inverse, for the tests. bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy
-arrays, which ``torch.from_numpy`` refuses, so they travel as their 16-bit
-patterns (``int16`` views), bit for bit.
+:func:`params_from_numpy` turns a tree given as nested dicts of numpy
+arrays (the reference's pytree after ``jax.device_get``) into the port's
+dict of tensors, key for key; :func:`params_to_numpy` is its inverse, for
+the tests. Any such tree goes across: the parameters, or the train state
+``{"params", "opt", "error_fb"}`` with AdamW's ``m``, ``v``, ``master`` or
+Adafactor's ``vr``, ``vc``, and the int32 scalar ``step`` (a 0-d tensor
+here, a 0-d array there), so both packages can start from one state.
+bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy arrays, which
+``torch.from_numpy`` refuses, so they travel as their 16-bit patterns
+(``int16`` views), bit for bit.
 """
 from __future__ import annotations
 
@@ -29,8 +34,8 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Mapping, device) -> Params:
-    """Nested dicts of numpy arrays -> the same dicts of tensors on
-    ``device``."""
+    """Nested dicts of numpy arrays (params or a train state) -> the same
+    dicts of tensors on ``device``, dtypes kept."""
     return {k: params_from_numpy(v, device) if isinstance(v, Mapping)
             else _tensor(v, device) for k, v in tree.items()}
 

@@ -18,7 +18,7 @@ Params = Dict[str, object]
 
 __all__ = ["Params", "dense_init", "embed_init", "rms_norm", "layer_norm",
            "norm_params", "apply_norm", "mlp_params", "mlp_apply",
-           "rope_freqs", "rope_apply"]
+           "rope_freqs", "rope_apply", "softmax_xent"]
 
 
 def _trunc_normal(gen: torch.Generator, shape, std: float, dtype):
@@ -110,3 +110,20 @@ def rope_apply(x, sin, cos):
     x1f, x2f = x1.float(), x2.float()
     return torch.cat([x1f * cos - x2f * sin,
                       x2f * cos + x1f * sin], dim=-1).to(x.dtype)
+
+
+# ------------------------------------------------------------------ loss
+def softmax_xent(logits, labels, mask=None):
+    """Cross entropy with a float32 logsumexp.
+
+    logits [..., V] (any float dtype), labels int [...]. Returns the mean
+    loss (over ``mask``'s true entries when given).
+    """
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    lab = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = lse - lab
+    if mask is not None:
+        m = mask.float()
+        return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.mean(nll)

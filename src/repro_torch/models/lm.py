@@ -3,16 +3,27 @@ counterpart of ``repro.models.lm``, for the dense decoder-only families.
 
 Parameters are a dict of tensors keyed and shaped as the reference's
 pytree: per-segment stacks ``p["seg0"][...]`` of shape ``[n_layers, ...]``.
-The reference's ``lax.scan`` over a stack becomes a Python loop over views
-of it, and ``jax.jit`` plain eager calls (the serving engine runs them
-under ``torch.inference_mode()``). The moe, mla, ssm, hybrid, enc-dec and
-vlm families raise ``NotImplementedError`` naming their ROADMAP item.
+The reference's ``lax.scan`` over a stack becomes a Python loop over its
+layers, and ``jax.jit`` plain eager calls. :func:`forward` is the training
+forward: it runs under autograd (``train.losses.loss_fn`` differentiates
+it) and takes the reference's ``cfg.remat`` per block — ``"none"`` plain
+autograd, ``"full"`` ``torch.utils.checkpoint`` of the block,
+``"dots"`` a selective checkpoint that keeps the outputs of the
+non-batched matrix products (the reference's
+``checkpoint_dots_with_no_batch_dims``) and recomputes the rest.
+:func:`prefill` and :func:`decode_step` are the serving engine's eager
+inference calls (run under ``torch.inference_mode()``). The moe, mla, ssm,
+hybrid, enc-dec and vlm families raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import attention as A
 from . import blocks as BLK
@@ -90,19 +101,52 @@ def _positions(B: int, S: int, device):
 
 
 # ===================================================================== train
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep what the
+    non-batched matrix products return, recompute everything else."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _save_dots)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=ctx)
+    if cfg.remat == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    raise ValueError(f"remat {cfg.remat!r}: none | full | dots")
+
+
+def _unbind_layers(seg: Params, n: int):
+    """The ``n`` layers of a stacked segment as dicts of views. Their
+    backward (``torch.unbind``'s) stacks the layers' gradients once, where
+    indexing each layer would scatter its gradient into a zero stack."""
+    parts = {k: _unbind_layers(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in seg.items()}
+    return [{k: parts[k][j] for k in parts} for j in range(n)]
+
+
 def forward(p: Params, cfg: ModelConfig, batch: Dict):
-    """-> (logits [B,S,V], aux_loss, hidden [B,S,d])."""
+    """-> (logits [B,S,V], aux_loss (float32 scalar), hidden [B,S,d])."""
     _dense_family(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed(p, tokens)
     positions = _positions(B, S, x.device)
     mask = A.MaskSpec("causal", cfg.window, 0)
-    aux = 0.0
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, n) in enumerate(BLK.block_kinds(cfg)):
-        for j in range(n):
-            x, a = BLK.block_forward(layer_params(p[f"seg{i}"], j), cfg,
-                                     kind, x, positions, mask)
+        for pl in _unbind_layers(p[f"seg{i}"], n):
+            def body(h, pl=pl, kind=kind):
+                return BLK.block_forward(pl, cfg, kind, h, positions, mask)
+            x, a = _maybe_remat(body, cfg)(x)
             aux = aux + a
     h = apply_norm(x, p["final_norm"], cfg.norm, cfg.norm_eps)
     return unembed(p, cfg, h), aux, h

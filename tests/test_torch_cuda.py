@@ -27,9 +27,9 @@ from repro_torch.kernels.leaf_probe import ops as k4
 from repro_torch.shard import place_shard
 
 from chip_smoke import (K5_BOUND, K5_CASES, int_keys, k3_vs_plain,
-                        k4_vs_plain, k5_sweep, k5_vs_plain, kernel_vs_plain,
-                        scan_kernel_vs_plain, stale_parents,
-                        tree_diffs, url_keys, ycsb_keys)
+                        k4_vs_plain, k5_grad_check, k5_sweep, k5_vs_plain,
+                        kernel_vs_plain, scan_kernel_vs_plain, stale_parents,
+                        train_parity, tree_diffs, url_keys, ycsb_keys)
 from test_torch_level_edges import K3_SHAPES, k3_edge_inputs, k4_edge_inputs
 from test_torch_tie_keys import tie_scan_tree
 
@@ -845,3 +845,48 @@ def test_cuda_k2_parked_lanes_match_plain(cuda_device):
     plen = torch.full((512,), 24, dtype=torch.int32, device="cuda")
     for t in card.shards:
         assert scan_kernel_vs_plain(t, park, plen, 50) == 0
+
+
+# The flash-attention Function on the card: K5's forward against the plain
+# version within chip_smoke.k5_tolerance, and the recompute backward's
+# gradients against autograd through the plain version in float32, within
+# chip_smoke.k5_grad_tolerance: causal, windowed, prefix and full masks,
+# GQA ratios 1, 4 and 8, ragged S and T.
+K5_GRAD_CASES = (
+    dict(B=1, S=1100, T=1100, H=8, Hk=1, hd=128, mask=("causal", 0, 0)),
+    dict(B=2, S=700, T=700, H=8, Hk=2, hd=64, mask=("causal", 128, 0)),
+    dict(B=1, S=513, T=513, H=4, Hk=4, hd=128, mask=("causal", 0, 37)),
+    dict(B=1, S=300, T=520, H=8, Hk=1, hd=64, mask=("full", 0, 0)),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("case", range(len(K5_GRAD_CASES)))
+def test_cuda_k5_grads_match_plain(cuda_device, dtype, case):
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.attention import MaskSpec
+    c = K5_GRAD_CASES[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(case)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=cuda_device) \
+        .to(dtype)
+    q = rnd(c["B"], c["S"], c["H"], c["hd"])
+    k = rnd(c["B"], c["T"], c["Hk"], c["hd"])
+    v = rnd(c["B"], c["T"], c["Hk"], c["hd"])
+    g = rnd(c["B"], c["S"], c["H"] * c["hd"])
+    n0 = ops.LAUNCHES
+    r = k5_grad_check(q, k, v, g, MaskSpec(*c["mask"]), c["H"] // c["Hk"],
+                      c["hd"] ** -0.5)
+    assert ops.LAUNCHES - n0 == 1          # the forward: one K5 launch
+    assert r["forward"]["max_err_over_tol"] <= 1.0, r
+    assert r["backward"]["max_err_over_tol"] <= 1.0, r
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu(cuda_device):
+    """One train step of yi-9b's SMOKE config at seq 2,304 (K5 on the
+    card, the tiled path on the CPU) from one state: chip_smoke's check
+    (d), within TRAIN_STEP_BOUND."""
+    res, fails = train_parity(0, cuda_device)
+    assert not fails, (fails, res)
+    assert res["k5_launches"] == 4

@@ -32,7 +32,9 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
               "repro_torch.serving.engine", "repro_torch.models.lm",
               "repro_torch.configs.yi_9b", "repro_torch.launch.serve",
               "repro_torch.core.lifecycle", "repro_torch.core.protocol",
-              "repro_torch.shard.ops", "repro_torch.shard.router"):
+              "repro_torch.shard.ops", "repro_torch.shard.router",
+              "repro_torch.train.train_step", "repro_torch.train.checkpoint",
+              "repro_torch.launch.train", "repro_torch.parallel.compression"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
