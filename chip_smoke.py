@@ -11,7 +11,9 @@ the device build and ``rebuild``, and the paper's factor analysis (Fig.
 feature-comparison kernel K3 per level) and ``probe_cuda`` (the hashtag
 leaf-filter kernel K4), and LLM serving through the FB+-tree prefix cache
 (``serving.Engine`` on yi-9b at full size; every long prefill layer is one
-launch of the flash-attention kernel K5):
+launch of the flash-attention kernel K5), training, and the MoE family
+(llama4-scout through ``Engine``, deepseek-v3's MLA with K5 at q/k head
+dim 192):
 
 1. the card's name and power limit;
 2. build of every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
@@ -116,7 +118,27 @@ launch of the flash-attention kernel K5):
     an injected failure must give the uninterrupted run's losses and a
     checkpoint that restores equal. It prints the step's ms, tokens/s,
     ``train_mfu``, peak device memory, and K5's forward and the recompute
-    backward's ms at the training shape.
+    backward's ms at the training shape;
+16. ``serve-moe``: the MoE family at full width (:data:`SERVE_MOE`). (a)
+    llama4-scout cut to 8 layers through the port's ``Engine`` (8 requests
+    of the serve mix, gshard at capacity factor 1.25): the checks of
+    ``serve`` (every request done, K5 8 times a prefill, hits and
+    evictions, fsck, the CPU replay, cached KV), K5 against its plain
+    version on layer 0's real q, k, v, ``moe_scatter`` and ``moe_mixed``
+    against ``moe_gshard`` on layer 0's FFN input within :data:`MOE_BOUND`,
+    and prefill then 4 decode steps against the teacher-forced forward on
+    one 2,100-token sequence at capacity factor 8 (:data:`DECODE_BOUND`).
+    (b) deepseek-v3 cut to 4 layers (3 dense, 1 MoE; no MTP) through
+    ``lm.prefill`` (4 x 3,072 tokens; one warm-up and three timed, the
+    median reported) and 16 ``lm.decode_step`` calls: K5 once a layer a
+    prefill, K5 on layer 0's real MLA q, k, v (q/k 192, v 128) within
+    :func:`k5_tolerance` and timed there beside
+    ``scaled_dot_product_attention``, the dispatches on the MoE layer, and
+    decode against forward. (c) both at SMOKE widths on the card against
+    the CPU (:data:`MOE_PARITY_BOUND`), and a deepseek SMOKE train step
+    (MoE, MLA, MTP) within :data:`TRAIN_STEP_BOUND`. It prints prefill ms
+    a request, decode step ms, new tokens/s, peak memory and each
+    dispatch's ms.
 
 Each phase prints one JSON line. The line before the last holds the
 kernels table; the last line is ``{"ok": true, "device": ...}``. The script
@@ -124,7 +146,8 @@ exits non-zero, with no result, when there is no CUDA device, when the
 port's sources are not beside it, or when any check fails. Run:
 ``python3 chip_smoke.py``; ``rehearse_serve()`` runs the serve phase's
 checks on the CPU at SMOKE size, ``rehearse_shard()`` the shard phases'
-at 6,000 keys, ``rehearse_train()`` the train phase's at SMOKE size.
+at 6,000 keys, ``rehearse_train()`` the train phase's at SMOKE size,
+``rehearse_serve_moe()`` the serve-moe phase's at SMOKE size.
 """
 from __future__ import annotations
 
@@ -1970,7 +1993,10 @@ REHEARSAL_MIX = dict(smoke=True, n_req=16, plen=96, shared=64, new_tokens=8,
 # every mask kind, GQA n_rep in {1, 4, 8}, kv_len < T and rows with no valid
 # key. "sdpa" cases go through ops.flash_sdpa ([B,S,H,hd], kv not repeated),
 # "flat" cases straight to cuda.launch ([BH,S,hd] with kv_len < T, which
-# flash_sdpa never asks for).
+# flash_sdpa never asks for). A case with "hv" has a v head dim of its own:
+# the last six take the (192, 128) build, MLA's widths (S = T = 3,072
+# causal, a window, a prefix, kv_len < T, odd S and T, n_rep 1 and 4; q/k
+# 136 padded to 192 in shared memory).
 K5_CASES = (
     dict(api="sdpa", B=2, S=200, T=200, H=8, Hk=2, hd=32, mask=("causal", 0, 0)),
     dict(api="sdpa", B=1, S=130, T=70, H=4, Hk=4, hd=16, mask=("full", 0, 0)),
@@ -1987,6 +2013,18 @@ K5_CASES = (
     dict(api="flat", BH=4, S=300, T=333, hd=128, kv_len=200,
          mask=("causal", 0, 0)),
     dict(api="flat", BH=3, S=65, T=129, hd=24, kv_len=129, mask=("full", 0, 0)),
+    dict(api="sdpa", B=1, S=3072, T=3072, H=16, Hk=16, hd=192, hv=128,
+         mask=("causal", 0, 0)),
+    dict(api="sdpa", B=1, S=1100, T=1100, H=8, Hk=2, hd=192, hv=128,
+         mask=("causal", 300, 0)),
+    dict(api="sdpa", B=2, S=257, T=257, H=4, Hk=4, hd=192, hv=128,
+         mask=("causal", 0, 13)),
+    dict(api="sdpa", B=1, S=131, T=71, H=4, Hk=1, hd=192, hv=128,
+         mask=("full", 0, 0)),
+    dict(api="flat", BH=3, S=301, T=333, hd=192, hv=128, kv_len=200,
+         mask=("causal", 0, 0)),
+    dict(api="flat", BH=2, S=200, T=256, hd=136, hv=64, kv_len=96,
+         mask=("causal", 40, 0)),
 )
 
 
@@ -2085,27 +2123,28 @@ def k5_vs_plain(q, k, v, mask, n_rep: int, scale: float) -> dict:
 def k5_sweep(device, dtype, seed: int):
     """Every case of ``K5_CASES`` in ``dtype``: K5 against its plain
     version within :func:`k5_tolerance` (so rows with no valid key exactly
-    0). Returns the worst error, the worst error / bound, and the
-    failures."""
+    0). Returns the worst error, the worst error / bound, the failures and
+    the indices of the failed cases."""
     from repro_torch.kernels.flash_attention import cuda
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.models.attention import MaskSpec
     gen = torch.Generator(device=device).manual_seed(seed)
     rnd = lambda *s: torch.randn(s, generator=gen, device=device).to(dtype)
     worst = ratio = 0.0
-    bad = []
-    for c in K5_CASES:
+    bad, failed = [], []
+    for i, c in enumerate(K5_CASES):
         kind, window, pre = c["mask"]
+        hv = c.get("hv", c["hd"])
         if c["api"] == "sdpa":
             q = rnd(c["B"], c["S"], c["H"], c["hd"])
             k = rnd(c["B"], c["T"], c["Hk"], c["hd"])
-            v = rnd(c["B"], c["T"], c["Hk"], c["hd"])
+            v = rnd(c["B"], c["T"], c["Hk"], hv)
             r = k5_vs_plain(q, k, v, MaskSpec(*c["mask"]),
                             c["H"] // c["Hk"], c["hd"] ** -0.5)
         else:
             q = rnd(c["BH"], c["S"], c["hd"])
             k = rnd(c["BH"], c["T"], c["hd"])
-            v = rnd(c["BH"], c["T"], c["hd"])
+            v = rnd(c["BH"], c["T"], hv)
             kw = dict(scale=c["hd"] ** -0.5, kv_len=c["kv_len"],
                       causal=kind == "causal", window=window, prefix_len=pre)
             got, _ = cuda.launch(q[:, None], k[:, None], v[:, None], n_rep=1,
@@ -2122,8 +2161,9 @@ def k5_sweep(device, dtype, seed: int):
         ratio = max(ratio, r["max_err_over_tol"])
         if not r["max_err_over_tol"] <= 1.0:
             bad.append(f"{c}: {r}")
+            failed.append(i)
     return dict(max_abs_err=worst, max_err_over_tol=ratio,
-                cases=len(K5_CASES), failures=bad)
+                cases=len(K5_CASES), failures=bad, failed_cases=failed)
 
 
 def k5_bound(B, S, T, H, Hk, hd, hv, mask, elem_bytes=2):
@@ -2140,18 +2180,20 @@ def k5_bound(B, S, T, H, Hk, hd, hv, mask, elem_bytes=2):
                                  else "bytes"), flops, nbytes
 
 
-def k5_timing(q, k, v, n_rep: int, runs: int):
-    """K5 at the served shape (causal): CUDA-event median of the kernel,
-    of its plain version and of one ``scaled_dot_product_attention`` call
-    on the same inputs (kv repeated, ``is_causal=True``; timed here as a
-    yardstick, never called by the port), and the bound."""
+def k5_timing(q, k, v, n_rep: int, runs: int, scale=None, metric="k5_ms"):
+    """K5 at a served shape (causal): CUDA-event median of the kernel, of
+    its plain version and of one ``scaled_dot_product_attention`` call on
+    the same inputs (kv repeated, ``is_causal=True``; timed here as a
+    yardstick, never called by the port), and the bound. ``scale`` is
+    hd^-0.5 when None. Prints the times as ``metric`` and a ``k5_design``
+    line for the build of these head dims."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_sdpa_ref
     from repro_torch.models.attention import CAUSAL
     B, S, H, hd = q.shape
     T, Hk, hv = k.shape[1], k.shape[2], v.shape[-1]
-    scale = hd ** -0.5
+    scale = scale or hd ** -0.5
     kern = lambda: ops.flash_sdpa(q, k, v, CAUSAL, n_rep, scale)
     plain = lambda: flash_sdpa_ref(q, k, v, CAUSAL, n_rep, scale)
     qh = q.transpose(1, 2)
@@ -2175,13 +2217,14 @@ def k5_timing(q, k, v, n_rep: int, runs: int):
                library_vs_kernel_max_abs_err=lib_err, bound_ms=b_ms,
                bound_by=b_by, flops=flops, bytes=nbytes,
                tflops_per_s=flops / k_ms / 1e9, bound_share=b_ms / k_ms,
-               shape=dict(B=B, S=S, T=T, H=H, Hk=Hk, hd=hd, dtype=str(q.dtype)))
-    emit({"metric": "k5_ms", **out})
-    emit({"metric": "k5_design", **k5_design(hd)})
+               shape=dict(B=B, S=S, T=T, H=H, Hk=Hk, hd=hd, hv=hv,
+                          dtype=str(q.dtype)))
+    emit({"metric": metric, **out})
+    emit({"metric": "k5_design", **k5_design(hd, hv)})
     return out
 
 
-def k5_design(head_dim: int) -> dict:
+def k5_design(head_dim: int, v_head_dim: int) -> dict:
     """Evidence that the card runs K5's wgmma/TMA body: the kernel's
     registers a thread, its static and dynamic shared memory and its blocks
     a SM (``cudaFuncGetAttributes``, ``cudaOccupancyMaxActiveBlocksPer
@@ -2193,7 +2236,8 @@ def k5_design(head_dim: int) -> dict:
     from torch.utils.cpp_extension import CUDA_HOME
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.flash_attention import cuda
-    out = dict(head_dim=head_dim, **cuda.kernel_attributes(head_dim))
+    out = dict(head_dim=head_dim, v_head_dim=v_head_dim,
+               **cuda.kernel_attributes(head_dim, v_head_dim))
     lib = nvcc.library_path(cuda.SOURCE)
     tool = shutil.which("cuobjdump") or (
         os.path.join(CUDA_HOME, "bin", "cuobjdump") if CUDA_HOME else None)
@@ -2211,25 +2255,43 @@ def k5_design(head_dim: int) -> dict:
     return out
 
 
-def capture_qkv(params, cfg, toks, layers):
-    """q, k, v of ``layers`` in one prefill of ``toks`` [1, S] (the inputs
-    K5 gets there), by running the blocks one at a time."""
+def capture_layers(params, cfg, toks, layers) -> dict:
+    """For each layer in ``layers``, what it sees in one forward of ``toks``
+    [B, S], by running the blocks one at a time up to the last of them:
+    q, k, v and the scale K5 gets there (MLA's 192-wide q/k for deepseek),
+    ``n_rep``, the layer's kind and parameters, and its FFN input (the
+    normed hidden after its attention)."""
     from repro_torch.models import attention as A
     from repro_torch.models import blocks as BLK
     from repro_torch.models import lm
+    from repro_torch.models import mla as MLA
     from repro_torch.models.layers import apply_norm
     x = params["embed"][toks.long()]
     B, S = toks.shape
     pos = torch.arange(S, dtype=torch.int32, device=toks.device).expand(B, S)
     mask = A.MaskSpec("causal", cfg.window, 0)
-    out = {}
-    for i, (kind, n) in enumerate(BLK.block_kinds(cfg)):
+    out, i = {}, 0
+    for si, (kind, n) in enumerate(BLK.block_kinds(cfg)):
         for j in range(n):
-            pl = lm.layer_params(params[f"seg{i}"], j)
-            if j in layers:
+            if i > max(layers):
+                return out
+            pl = lm.layer_params(params[f"seg{si}"], j)
+            if i in layers:
                 h = apply_norm(x, pl["ln1"], cfg.norm, cfg.norm_eps)
-                out[j] = A._qkv(pl["attn"], cfg, h, pos)
-            x, _ = BLK.block_forward(pl, cfg, kind, x, pos, mask)
+                if kind.startswith("mla"):
+                    q, k, v, scale = MLA.mla_qkv(pl["attn"], cfg, h, pos)
+                else:
+                    (q, k, v), scale = A._qkv(pl["attn"], cfg, h, pos), \
+                        cfg.hd ** -0.5
+                x = x + BLK._mixer(pl, cfg, kind, h, pos, mask)
+                f_in = apply_norm(x, pl["ln2"], cfg.norm, cfg.norm_eps)
+                out[i] = dict(q=q, k=k, v=v, scale=scale,
+                              n_rep=q.shape[2] // k.shape[2], kind=kind,
+                              params=pl, ffn_in=f_in)
+                x = x + BLK._ffn(pl, cfg, f_in)[0]
+            else:
+                x, _ = BLK.block_forward(pl, cfg, kind, x, pos, mask)
+            i += 1
     return out
 
 
@@ -2427,10 +2489,11 @@ def _serve(seed, dev, runs, *, smoke, n_req, plen, shared, new_tokens,
     n_rep = cfg.n_heads // cfg.n_kv_heads
     real, sweep, timing = {}, {}, None
     with torch.inference_mode():
-        qkv = capture_qkv(params, cfg, torch.as_tensor(reqs[0], device=dev)
-                          [None], (0, cfg.n_layers - 1))
-        for layer, (q, k, v) in qkv.items():
-            real[layer] = k5_vs_plain(q, k, v, CAUSAL, n_rep, cfg.hd ** -0.5)
+        caps = capture_layers(params, cfg, torch.as_tensor(
+            reqs[0], device=dev)[None], (0, cfg.n_layers - 1))
+        for layer, c in caps.items():
+            real[layer] = k5_vs_plain(c["q"], c["k"], c["v"], CAUSAL, n_rep,
+                                      c["scale"])
             if not real[layer]["max_err_over_tol"] <= 1.0:
                 fails.append(f"K5 layer {layer}: {real[layer]}")
         if on_card:    # no kernel runs on the CPU: nothing to sweep
@@ -2438,8 +2501,9 @@ def _serve(seed, dev, runs, *, smoke, n_req, plen, shared, new_tokens,
                 s = k5_sweep(dev, dt, seed)
                 fails += [f"K5 sweep {dt}: {b}" for b in s.pop("failures")]
                 sweep[str(dt)] = s
-            timing = k5_timing(*qkv[0], n_rep, runs)
-    del qkv
+            timing = k5_timing(caps[0]["q"], caps[0]["k"], caps[0]["v"],
+                               n_rep, runs)
+    del caps
     n_params = sum(t.numel() for t in _leaves(params))
     pm, sm = res.pop("prefill_ms"), res.pop("step_ms")
     out = {"phase": "serve", "arch": cfg.name, "params": n_params,
@@ -2505,7 +2569,8 @@ K5_GRAD_BOUND = (
 TRAIN_STEP_BOUND = (
     "card vs CPU, one bf16 AdamW step: loss and ce within 2e-3 relative, "
     "grad_norm within 3e-2 relative, lr within 1e-6; every parameter element "
-    "within 2 lr + 2^-7 |cpu| and each tensor's mean |diff| within lr / 4")
+    "within 2 lr (1 + 2^-8) + 2^-7 |cpu| and each tensor's mean |diff| "
+    "within lr / 4")
 TRAIN_RESTART_BOUND = "each step's loss within 1e-3 relative of the uninterrupted run's"
 
 
@@ -2654,8 +2719,18 @@ def capture_train_qkv(cfg, seed: int, dev):
                                   seq_len=TRAIN_RUN["seq"], seed=seed), cfg)
     toks = torch.from_numpy(data.batch_at(0)["tokens"][:1]).to(dev)
     with torch.no_grad():
-        first = dataclasses.replace(cfg, n_layers=1)
-        return capture_qkv(params, first, toks, (0,))[0]
+        c = capture_layers(params, cfg, toks, (0,))[0]
+    return c["q"], c["k"], c["v"]
+
+
+def param_step_bound(want, lr: float):
+    """The per-element bound of :data:`TRAIN_STEP_BOUND` on the params
+    after one bf16 AdamW step on two devices, ``want`` the CPU's. Adam's
+    first update is lr times g / (|g| + eps) (weight decay alike on both),
+    so where g's sign differs the float32 masters lie up to 2 lr apart;
+    each side then rounds to bf16 at its own magnitude, within 2^-8 of it:
+    2^-8 |cpu| + 2^-8 (|cpu| + 2 lr)."""
+    return 2 * lr * (1 + 2.0 ** -8) + 2.0 ** -7 * want.abs()
 
 
 def step_compare(got, want, mg, mw, lr: float) -> list:
@@ -2674,30 +2749,33 @@ def step_compare(got, want, mg, mw, lr: float) -> list:
     for key, a in tree_paths(got):
         a, b = a.float().cpu(), wants[key].float().cpu()
         d = (a - b).abs()
-        if not bool((d <= 2 * lr + 2.0 ** -7 * b.abs()).all()):
+        if not bool((d <= param_step_bound(b, lr)).all()):
             fails.append(f"{key}: max |diff| {float(d.max())}")
         if not float(d.mean()) <= lr / 4:
             fails.append(f"{key}: mean |diff| {float(d.mean())}")
     return fails
 
 
-def train_parity(seed: int, dev) -> tuple:
-    """Check (d): one ``make_train_step`` step of yi-9b's SMOKE config at
-    :data:`TRAIN_PARITY` from one state on ``dev`` and on the CPU (the CPU
-    runs ``_sdpa_flash``), within :data:`TRAIN_STEP_BOUND`. On the CPU
-    alone it runs the CPU side. Returns (result, failures)."""
+def train_parity(seed: int, dev, arch: str = TRAIN_ARCH,
+                 seq: int = TRAIN_PARITY["seq"]) -> tuple:
+    """Check (d): one ``make_train_step`` step of ``arch``'s SMOKE config
+    (yi-9b's; deepseek-v3's in ``serve-moe``: MoE, MLA and the MTP loss) at
+    :data:`TRAIN_PARITY` (sequences of ``seq`` tokens) from one state on
+    ``dev`` and on the CPU (the CPU runs ``_sdpa_flash``), within
+    :data:`TRAIN_STEP_BOUND`. On the CPU alone it runs the CPU side.
+    Returns (result, failures)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as k5
     from repro_torch.train import optim as O
     from repro_torch.train.data import DataConfig, TokenStream
     from repro_torch.train.train_step import init_state, make_train_step
     from repro_torch.train.tree import tree_map
-    cfg = get_config(TRAIN_ARCH, smoke=True)
+    cfg = get_config(arch, smoke=True)
     ocfg = O.OptConfig(lr=1e-3, warmup=1, total_steps=10)
     state = init_state(cfg, ocfg, torch.Generator().manual_seed(seed))
     batch = TokenStream(DataConfig(vocab=cfg.vocab,
                                    global_batch=TRAIN_PARITY["batch"],
-                                   seq_len=TRAIN_PARITY["seq"], seed=seed),
+                                   seq_len=seq, seed=seed),
                         cfg).batch_at(0)
     runs, fails = {}, []
     for d in dict.fromkeys([str(dev), "cpu"]):
@@ -2714,7 +2792,8 @@ def train_parity(seed: int, dev) -> tuple:
         fails.append(f"non-finite CPU metrics {cpu_m}")
     if str(dev) != "cpu":
         p, m, launched = runs[str(dev)]
-        want = cfg.n_layers * TRAIN_PARITY["n_micro"]
+        # one launch a layer a microbatch, and one in the MTP block
+        want = (cfg.n_layers + cfg.mtp) * TRAIN_PARITY["n_micro"]
         if launched != want:
             fails.append(f"card step: {launched} K5 launches, expected {want}")
         fails += step_compare(p, runs["cpu"][0], m, cpu_m, ocfg.lr)
@@ -2917,6 +2996,548 @@ def rehearse_train(seed=0):
     return {"losses": losses, "card_vs_cpu": parity, "restart": restart}
 
 
+# ------------------------------------------------------------------ serve-moe
+
+# The MoE family at full width. llama4-scout (GQA 40/8, head dim 128, 16
+# experts of d_ff 8,192, a top-1 softmax router, a shared expert, vocab
+# 202,048; gshard at capacity factor 1.25), cut from 48 layers to 8 (~19.7B
+# parameters, ~39.4 GB bf16), served through Engine: 8 requests of the serve
+# phase's mix (3,072 tokens, a 2,048-token prompt of 4 families drawn zipf
+# 1.5), 16 new tokens each, 4 at a time, over the serve phase's 1,024 pages
+# of 16 tokens, fewer than the 1,280 blocks the requests publish, so the
+# cache evicts (128 blocks). At 512 pages the second wave's publishes evict
+# a page matched earlier in the same wave before it is loaded: a fault of
+# the reference's engine, which the port keeps (ROADMAP queue 3), and which
+# the cached-KV check would flag. The rehearsal's 24 pages evict too, and
+# keep every matched page. deepseek-v3 (MLA, 128
+# heads: q_lora 1,536, kv_lora 512, nope 128, rope 64, v 128; 256 experts of
+# d_ff 2,048, a top-8 sigmoid router with a bias, 1 shared expert, dense d_ff
+# 18,432, vocab 129,280), cut from 61 layers to 4 (the 3 dense layers and 1
+# MoE layer) and without its MTP block, which serving never reads: ~15.1B
+# parameters, ~30.2 GB; prefills of 4 sequences of 3,072 tokens (one untimed
+# warm-up, then the median of three), then 16 decode steps, through lm.prefill and lm.decode_step (the Engine's page
+# store holds GQA pages only, as the reference's does). "parity" is the
+# decode-vs-forward check: one sequence of 2,100 tokens (S*S above
+# FLASH_THRESH), 4 decode steps.
+SERVE_MOE = dict(
+    llama4=dict(arch="llama4-scout-17b-a16e", smoke=False, n_layers=8,
+                n_req=8, plen=3072, shared=2048, new_tokens=16, n_pages=1024),
+    deepseek=dict(arch="deepseek-v3-671b", smoke=False, n_layers=4, batch=4,
+                  plen=3072, steps=16, prefills=4),
+    parity=dict(S=2100, steps=4),
+    card_vs_cpu=dict(B=2, S=2100, steps=4, capacity_factor=8.0,
+                     train_seq=2304))
+REHEARSAL_MOE = dict(
+    llama4=dict(arch="llama4-scout-17b-a16e", smoke=True, n_layers=None,
+                n_req=8, plen=96, shared=64, new_tokens=8, n_pages=24),
+    deepseek=dict(arch="deepseek-v3-671b", smoke=True, n_layers=None,
+                  batch=2, plen=96, steps=4, prefills=2),
+    parity=dict(S=40, steps=4),
+    card_vs_cpu=dict(B=2, S=40, steps=4, capacity_factor=8.0, train_seq=64))
+# "card_vs_cpu" is (c), the card against the CPU at SMOKE widths: one
+# prefill of 2 sequences of 2,100 tokens (K5 on the card, _sdpa_flash on
+# the CPU) and 4 decode steps, in float32 and bf16, at capacity factor 8: no
+# slot is dropped, so a token that bf16 noise routes to other experts at a
+# near-tie changes only its own output, not which later tokens an expert
+# drops; then a deepseek train step of 2 x 2,304 tokens (TRAIN_PARITY's).
+# The rehearsal runs (c)'s CPU side on short sequences.
+ROUTE_TIE_GAP = 2.0 ** -5
+MOE_BOUND = ("per element (k + 2) 2^-8 A, A = the sum over the token's kept "
+             "slots of |router weight x expert output| in float32: each "
+             "dispatch rounds each weighted output, and its sum, to bf16")
+ROUTE_TIE = ("a token some MoE layer routes to other experts in one run "
+             "than in the other is excused when, in the run held as the "
+             "reference (the CPU's, or the forward's), that layer's k-th and "
+             "(k+1)-th selection scores for it lie within 2^-5 (the TIE of "
+             "tests/test_torch_moe.py: noise reorders a near-tie), and so are "
+             "its later layers; any other reordering fails")
+DECODE_BOUND = ("max |logits - forward's| < 0.15 (tests/test_models.py); "
+                "at most one position routed otherwise, excused as "
+                + ROUTE_TIE)
+MOE_PARITY_BOUND = ("tests/test_torch_models.py's: float32 logits 1e-4 "
+                    "(decode 1e-3) of the largest, cache entries 2^-7 of "
+                    "their own magnitude + 1e-4 of the largest; bf16 5e-2 of "
+                    "the largest; tokens routed otherwise excused as "
+                    + ROUTE_TIE)
+
+
+def _moe_cfg(spec, **over):
+    """The configuration of a ``serve-moe`` part: the arch at full width
+    (or SMOKE), its depth cut to ``n_layers``, deepseek without MTP."""
+    from repro_torch.configs import get_config
+    if spec["n_layers"]:
+        over["n_layers"] = spec["n_layers"]
+    if spec["arch"] == "deepseek-v3-671b":
+        over["mtp"] = False
+    return get_config(spec["arch"], smoke=spec["smoke"], **over)
+
+
+class _Routes:
+    """Within a ``with`` block, every routing of ``models.moe._route`` in
+    call order: (expert ids [B,S,k], selection scores [B,S,E]: the sigmoid
+    scores plus the bias, or the softmax probabilities, which top-k
+    ranks)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        self.calls, self._mod, self._orig = [], MOE, MOE._route
+
+        def route(p, cfg, x):
+            out = self._orig(p, cfg, x)
+            logits = x.float() @ p["router"]
+            sel = (torch.sigmoid(logits) + p["router_bias"]
+                   if cfg.router == "sigmoid" else torch.softmax(logits, -1))
+            self.calls.append((out[0], sel))
+            return out
+        MOE._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._route = self._orig
+
+    def at(self, s: int):
+        """The calls cut to sequence position ``s``."""
+        return [(i[:, s:s + 1], sc[:, s:s + 1]) for i, sc in self.calls]
+
+
+def route_diff(want, got):
+    """The tokens (b, s) that some MoE layer routes to other experts in
+    ``got`` than in ``want`` (``_Routes`` calls of the same layers on the
+    same tokens, in layer order), the faults among them: a reordering of
+    scores that are not a near-tie in ``want`` (:data:`ROUTE_TIE`), and
+    the readings of each such token where it first differs: (layer, its
+    gap in ``want``, how far its scores moved between the runs). A token
+    already routed otherwise in an earlier layer carries another FFN
+    output from there on, so its later layers are not judged."""
+    if len(want) != len(got):
+        return set(), [f"{len(want)} routings against {len(got)}"], []
+    flipped, faults, ties = set(), [], []
+    for layer, ((wi, ws), (gi, gs)) in enumerate(zip(want, got)):
+        wi, ws, gi, gs = wi.cpu(), ws.float().cpu(), gi.cpu(), gs.float().cpu()
+        k = wi.shape[-1]
+        diff = (torch.sort(wi, -1).values != torch.sort(gi, -1).values).any(-1)
+        top = torch.sort(ws, -1, descending=True).values
+        for b, s in diff.nonzero().tolist():
+            if (b, s) in flipped:
+                continue
+            flipped.add((b, s))
+            gap = float(top[b, s, k - 1] - top[b, s, k])
+            move = float((ws[b, s] - gs[b, s]).abs().max())
+            ties.append((layer, gap, move))
+            if not gap <= ROUTE_TIE_GAP:
+                faults.append(f"token ({b}, {s}) layer {layer}: experts "
+                              f"{wi[b, s].tolist()} vs {gi[b, s].tolist()}, "
+                              f"score gap {gap}, scores moved {move}")
+    return flipped, faults, ties
+
+
+def tie_readings(ties) -> dict:
+    """What :func:`route_diff`'s readings say of the tokens routed
+    otherwise: how many, the largest gap and move, and the largest gap of
+    those first routed otherwise in the first MoE layer (before any other
+    token's change could reach them)."""
+    first = [g for layer, g, _ in ties if layer == 0]
+    return {"tokens": len(ties),
+            "max_gap": max((g for _, g, _ in ties), default=None),
+            "max_move": max((m for _, _, m in ties), default=None),
+            "max_gap_first_moe_layer": max(first, default=None)}
+
+
+def decode_vs_forward(params, cfg, toks, steps: int):
+    """The reference's own check (``tests/test_models.py::test_prefill_
+    decode_matches_forward``) on one sequence ``toks`` [1, S] at a capacity
+    factor where no slot can drop (8, as there, or the experts over top-k
+    when that is larger: capacity >= S, since a decode step of one token
+    never drops and a forward that dropped late tokens would differ):
+    ``lm.prefill`` of the first S - steps tokens, then ``steps`` decode
+    steps, each step's logits against the teacher-forced ``lm.forward``'s
+    within :data:`DECODE_BOUND`. Returns (result, failures)."""
+    from repro_torch.models import lm
+    from repro_torch.models import moe as MOE
+    cfg8 = dataclasses.replace(cfg, capacity_factor=max(
+        8.0, cfg.n_experts / max(cfg.top_k, 1)))
+    S = toks.shape[1]
+    n = S - steps
+    with torch.inference_mode():
+        with _Routes() as fwd:
+            logits, _, _ = lm.forward(params, cfg8, {"tokens": toks})
+        want = logits[0, n - 1:].float()
+        del logits
+        with _Routes() as pre:
+            pl, cache = lm.prefill(params, cfg8, {"tokens": toks[:, :n]},
+                                   S_max=S + 8)
+        got, routes = [pl[0].float()], [(fwd.at(n - 1), pre.at(n - 1))]
+        for i in range(steps):
+            pos = torch.full((1,), n + i, dtype=torch.int32,
+                             device=toks.device)
+            with _Routes() as dec:
+                dl, cache = lm.decode_step(params, cfg8, toks[:, n + i], pos,
+                                           cache)
+            got.append(dl[0].float())
+            routes.append((fwd.at(n + i), dec.calls))
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    fails, excused, ties = [], [], []
+    cap = MOE.capacity(cfg8, S)
+    load = max((int(torch.bincount(i.flatten().long(),
+                                   minlength=cfg.n_experts).max())
+                for i, _ in fwd.calls), default=0)
+    if load > cap:
+        fails.append(f"decode vs forward: an expert took {load} tokens "
+                     f"over a capacity of {cap}")
+    for i, (w, g) in enumerate(routes):
+        flipped, faults, t = route_diff(w, g)
+        fails += [f"position {n - 1 + i}: {f}" for f in faults]
+        ties += t
+        if flipped:
+            excused.append(n - 1 + i)
+    kept = [e for i, e in enumerate(errs) if n - 1 + i not in excused]
+    if len(excused) > 1:
+        fails.append(f"decode vs forward: {len(excused)} of {len(errs)} "
+                     f"positions excused")
+    if not max(kept, default=0.0) < 0.15:
+        fails.append(f"decode vs forward: errors {errs}")
+    return dict(S=S, steps=steps, capacity_factor=cfg8.capacity_factor,
+                capacity=cap, max_expert_load=load,
+                max_abs_err=max(kept, default=None), errs=errs,
+                excused_positions=excused, route_ties=tie_readings(ties),
+                bound=DECODE_BOUND), fails
+
+
+def moe_term_sum(p, cfg, x):
+    """[B,S,d] float32: for each token, the sum over its kept slots of
+    |router weight x expert output|, the scale of the roundings a
+    dispatch's combine makes."""
+    from repro_torch.models import moe as MOE
+    B, S, d = x.shape
+    idx, w, _ = MOE._route(p, cfg, x)
+    st, sk = MOE._slot_assignment(idx, cfg.n_experts, MOE.capacity(cfg, S))
+    ws = MOE._slot_weights(idx, w, st, sk)
+    h = MOE._expert_ffn(p, cfg, MOE.gather_dispatch(MOE._pad_token(x), st))
+    terms = h.float().abs() * ws.float().abs()[..., None]
+    del h
+    bi = torch.arange(B, device=x.device)[:, None, None].expand_as(st)
+    A = torch.zeros((B, S + 1, d), device=x.device)
+    return A.index_put_((bi, st.long()), terms, accumulate=True)[:, :S]
+
+
+def moe_agreement(p, cfg, h, runs: int) -> dict:
+    """``moe_scatter`` and ``moe_mixed`` against ``moe_gshard`` on the FFN
+    input ``h`` at the configuration's capacity, within :data:`MOE_BOUND`,
+    and each one's time (CUDA events, on the card)."""
+    from repro_torch.models import moe as MOE
+    with torch.inference_mode():
+        ys = {f"moe_{n}": fn(p, cfg, h)[0] for n, fn in MOE.MOE_IMPLS.items()}
+        tol = (cfg.top_k + 2) * 2.0 ** -8 * moe_term_sum(p, cfg, h)
+        out = {"capacity": MOE.capacity(cfg, h.shape[1]),
+               "tokens": h.shape[0] * h.shape[1], "bound": MOE_BOUND,
+               "fails": []}
+        for n in ("moe_scatter", "moe_mixed"):
+            r = _err_over_tol(ys[n], ys["moe_gshard"], tol)
+            out[n + "_vs_gshard"] = r
+            if not r["max_err_over_tol"] <= 1.0:
+                out["fails"].append(f"{n} vs moe_gshard: {r}")
+        del ys, tol
+        if h.is_cuda:
+            for n, fn in MOE.MOE_IMPLS.items():
+                out[f"moe_{n}_ms"] = _event_ms(lambda: fn(p, cfg, h),
+                                               runs)[0]
+    return out
+
+
+def serve_moe_llama4(spec, parity, seed: int, dev, runs: int) -> dict:
+    """(a): :func:`_serve_engine`'s checks on llama4 through ``Engine``;
+    K5 against its plain version on layer 0's real q, k, v; the three
+    dispatches on layer 0's FFN input; decode against forward."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import lm
+    from repro_torch.models.attention import CAUSAL
+    from repro_torch.serving import ServeConfig
+    on_card = dev.type == "cuda"
+    cfg = _moe_cfg(spec)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    reqs = make_requests(spec["n_req"], cfg.vocab, spec["shared"],
+                         spec["plen"], seed=seed)
+    scfg = ServeConfig(max_batch=4, s_max=spec["plen"] + spec["new_tokens"] + 8,
+                       block_tokens=16, n_pages=spec["n_pages"],
+                       max_new_tokens=spec["new_tokens"], tree_backend="fused")
+    res, fails, _ = _serve_engine(cfg, params, scfg, reqs, dev)
+    if on_card:
+        torch.cuda.empty_cache()
+    toks = torch.as_tensor(reqs[0], device=dev)[None]
+    with torch.inference_mode():
+        cap = capture_layers(params, cfg, toks, (0,))[0]
+        real = k5_vs_plain(cap["q"], cap["k"], cap["v"], CAUSAL, cap["n_rep"],
+                           cap["scale"])
+        if not real["max_err_over_tol"] <= 1.0:
+            fails.append(f"K5 layer 0: {real}")
+        moe = moe_agreement(cap["params"]["moe"], cfg, cap["ffn_in"], runs)
+        fails += moe.pop("fails")
+        del cap
+    dvf, f = decode_vs_forward(params, cfg, toks[:, :parity["S"]],
+                               parity["steps"])
+    fails += f
+    pm, sm = res.pop("prefill_ms"), res.pop("step_ms")
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "moe_impl": cfg.moe_impl,
+           "params": sum(t.numel() for t in _leaves(params)),
+           "init_s": init_s, "requests": len(reqs),
+           "prompt_len": spec["plen"], "serve_config": {
+               k: v for k, v in dataclasses.asdict(scfg).items()
+               if k != "faults"},
+           "prefills": len(pm), "decode_steps": len(sm),
+           "prefill_ms": statistics.median(pm), "prefill_ms_all": pm,
+           "decode_step_ms": statistics.median(sm),
+           "decode_step_ms_range": [min(sm), max(sm)],
+           "new_tokens_per_s": res["new_tokens"] / res["run_s"], **res,
+           "k5_layer0": real, "k5_tolerance": K5_BOUND, "moe_dispatch": moe,
+           "decode_vs_forward": dvf, "fails": fails}
+    return out
+
+
+def serve_moe_deepseek(spec, parity, seed: int, dev, runs: int) -> dict:
+    """(b): deepseek through ``lm.prefill`` and ``lm.decode_step`` (greedy
+    tokens): K5 once a layer a prefill, finite logits; K5 against its plain
+    version on layer 0's real q, k, v (q/k 192, v 128) and its time there;
+    the three dispatches on the MoE layer's FFN input; decode against
+    forward."""
+    from repro_torch.kernels.flash_attention import ops as k5
+    from repro_torch.models import lm
+    from repro_torch.models.attention import CAUSAL, FLASH_THRESH
+    on_card = dev.type == "cuda"
+    cfg = _moe_cfg(spec)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    B, S, steps = spec["batch"], spec["plen"], spec["steps"]
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+    fails = []
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    k5.LAUNCHES = 0                     # counts from this path only
+    with torch.inference_mode():
+        prefill_ms = []                 # the first one warms up, untimed
+        for _ in range(spec["prefills"]):
+            cache = logits = None
+            _sync(dev)
+            t = time.perf_counter()
+            logits, cache = lm.prefill(params, cfg, {"tokens": toks},
+                                       S_max=S + steps + 8)
+            _sync(dev)
+            prefill_ms.append((time.perf_counter() - t) * 1e3)
+        pre_launches = k5.LAUNCHES
+        step_ms, finite = [], bool(torch.isfinite(logits).all())
+        for i in range(steps):
+            nxt = torch.argmax(logits.float(), -1).to(torch.int32)
+            pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+            _sync(dev)
+            t = time.perf_counter()
+            logits, cache = lm.decode_step(params, cfg, nxt, pos, cache)
+            _sync(dev)
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            finite &= bool(torch.isfinite(logits).all())
+    launches = k5.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    want = spec["prefills"] * cfg.n_layers if S * S > FLASH_THRESH else 0
+    if on_card and (pre_launches, launches) != (want, want):
+        fails.append(f"K5 launches {pre_launches} in the prefills, {launches}"
+                     f" in all; expected {want} (one a layer a prefill)")
+    if not finite or logits.shape != (B, cfg.vocab):
+        fails.append(f"logits {tuple(logits.shape)}, finite {finite}")
+    del cache, logits
+    if on_card:
+        torch.cuda.empty_cache()
+    timing = None
+    with torch.inference_mode():
+        caps = capture_layers(params, cfg, toks[:1], (0, cfg.n_dense_layers))
+        cap = caps[0]
+        real = k5_vs_plain(cap["q"], cap["k"], cap["v"], CAUSAL, cap["n_rep"],
+                           cap["scale"])
+        if not real["max_err_over_tol"] <= 1.0:
+            fails.append(f"K5 layer 0 (q/k {cap['q'].shape[-1]}, v "
+                         f"{cap['v'].shape[-1]}): {real}")
+        if on_card:
+            timing = k5_timing(cap["q"], cap["k"], cap["v"], cap["n_rep"],
+                               runs, scale=cap["scale"], metric="k5_mla_ms")
+        cap = caps[cfg.n_dense_layers]
+        moe = moe_agreement(cap["params"]["moe"], cfg, cap["ffn_in"], runs)
+        fails += moe.pop("fails")
+        del cap, caps
+    dvf, f = decode_vs_forward(params, cfg, toks[:1, :parity["S"]],
+                               parity["steps"])
+    fails += f
+    return {"arch": cfg.name, "layers": cfg.n_layers, "mtp": cfg.mtp,
+            "moe_impl": cfg.moe_impl,
+            "params": sum(t.numel() for t in _leaves(params)),
+            "init_s": init_s, "batch": B, "prompt_len": S,
+            "prefill_ms": statistics.median(prefill_ms[1:]),
+            "prefill_ms_all": prefill_ms,
+            "prefill_ms_per_request": statistics.median(prefill_ms[1:]) / B,
+            "decode_step_ms": statistics.median(step_ms),
+            "decode_step_ms_all": step_ms,
+            "new_tokens_per_s": B * steps / (sum(step_ms) / 1e3),
+            "k5_launches": launches, "expected_k5_launches": want,
+            "peak_bytes": peak, "k5_layer0": real, "k5_tolerance": K5_BOUND,
+            "k5_mla_timing": timing, "moe_dispatch": moe,
+            "moe_layer": cfg.n_dense_layers, "decode_vs_forward": dvf,
+            "fails": fails}
+
+
+def _cache_fails(got, want, dtype, what, skip):
+    """``tests/test_torch_models.py``'s cache bound on every row of two
+    stacked caches (``KVCache`` or ``MLACache``) but the tokens ``skip``."""
+    fails = []
+    for f, g, w in zip(want._fields, got, want):
+        g, w = g.float().cpu().clone(), w.float().cpu().clone()
+        for b, s in skip:
+            g[:, b, s] = w[:, b, s] = 0
+        d = (g - w).abs()
+        ok = (d <= 2.0 ** -7 * w.abs() + 1e-4 * w.abs().max()).all() \
+            if dtype == torch.float32 else d.max() <= 5e-2 * w.abs().max()
+        if not bool(ok):
+            fails.append(f"{what} cache {f}: max |diff| {float(d.max())}")
+    return fails
+
+
+def moe_card_vs_cpu(spec, seed: int, dev) -> tuple:
+    """(c): each MoE configuration's SMOKE model from one CPU init (deepseek
+    without MTP), ``spec``'s prefill and decode steps on ``dev`` and on the
+    CPU, in float32 and bf16, logits and caches within
+    :data:`MOE_PARITY_BOUND`; then one deepseek SMOKE train step (MoE, MLA,
+    MTP) on ``dev`` against the CPU, :func:`train_parity`. On the CPU alone
+    it runs the CPU side. Returns (result, failures)."""
+    from repro_torch.models import lm
+    from repro_torch.train.tree import tree_map
+    B, S, steps = spec["B"], spec["S"], spec["steps"]
+    res, fails = {}, []
+    for arch in ("llama4-scout-17b-a16e", "deepseek-v3-671b"):
+        for dtype in (torch.float32, torch.bfloat16):
+            smoke = dict(arch=arch, smoke=True, n_layers=None)
+            cfg = _moe_cfg(smoke, param_dtype=str(dtype).split(".")[-1],
+                           capacity_factor=spec["capacity_factor"])
+            params = lm.init_params(cfg, torch.Generator().manual_seed(seed))
+            toks = torch.from_numpy(np.random.default_rng(seed).integers(
+                0, cfg.vocab, (B, S + steps)).astype(np.int32))
+            runs = {}
+            for d in dict.fromkeys([str(dev), "cpu"]):
+                p = tree_map(lambda t: t.to(d, copy=True), params)
+                tk = toks.to(d)
+                with torch.inference_mode(), _Routes() as rt:
+                    pl, cache = lm.prefill(p, cfg, {"tokens": tk[:, :S]},
+                                           S_max=S + steps)
+                    pre = list(rt.calls)
+                    out = [pl.float().cpu()]
+                    for i in range(steps):
+                        n0 = len(rt.calls)
+                        dl, cache = lm.decode_step(
+                            p, cfg, tk[:, S + i], torch.full(
+                                (B,), S + i, dtype=torch.int32, device=d),
+                            cache)
+                        out.append((dl.float().cpu(), rt.calls[n0:]))
+                runs[d] = (out, pre, cache)
+            what = f"{arch} {dtype}"
+            (cpu_out, cpu_pre, cpu_cache) = runs["cpu"]
+            r = {"cpu_logit_max": float(cpu_out[0].abs().max())}
+            if str(dev) != "cpu":
+                got, pre, cache = runs[str(dev)]
+                flipped, f, ties = route_diff(cpu_pre, pre)
+                fails += [f"{what} prefill: {x}" for x in f]
+                rel = 1e-4 if dtype == torch.float32 else 5e-2
+                keep = [b for b in range(B) if (b, S - 1) not in flipped]
+                err = float((got[0][keep] - cpu_out[0][keep]).abs().max())
+                if not err <= rel * float(cpu_out[0].abs().max()):
+                    fails.append(f"{what} prefill logits: {err}")
+                errs = [err]
+                for i in range(steps):
+                    (g, gr), (w, wr) = got[i + 1], cpu_out[i + 1]
+                    step_flips, f, t = route_diff(wr, gr)
+                    fails += [f"{what} decode {i}: {x}" for x in f]
+                    ties += t
+                    flipped |= {(b, S + i) for b, _ in step_flips}
+                    keep = [b for b in range(B) if (b, 0) not in step_flips]
+                    rel = 1e-3 if dtype == torch.float32 else 5e-2
+                    err = float((g[keep] - w[keep]).abs().max())
+                    errs.append(err)
+                    if not err <= rel * float(w.abs().max()):
+                        fails.append(f"{what} decode {i} logits: {err}")
+                fails += _cache_fails(cache, cpu_cache, dtype, what, flipped)
+                if dtype == torch.float32 and flipped:
+                    fails.append(f"{what}: float32 tokens routed otherwise: "
+                                 f"{sorted(flipped)}")
+                r.update(max_abs_err=errs, excused_tokens=sorted(flipped),
+                         route_ties=tie_readings(ties))
+            res[what] = r
+    step, f = train_parity(seed, dev, arch="deepseek-v3-671b",
+                           seq=spec["train_seq"])
+    fails += [f"deepseek train step: {x}" for x in f]
+    res["deepseek train step"] = step
+    return res, fails
+
+
+def run_serve_moe(*, seed, runs=25):
+    """The ``serve-moe`` phase on the card (:data:`SERVE_MOE`): (a)
+    :func:`serve_moe_llama4`, (b) :func:`serve_moe_deepseek`, (c)
+    :func:`moe_card_vs_cpu`. Returns the phase line."""
+    return _serve_moe(seed, torch.device("cuda"), runs, SERVE_MOE)
+
+
+def rehearse_serve_moe(seed=0):
+    """The ``serve-moe`` phase's checks on the CPU at SMOKE size
+    (:data:`REHEARSAL_MOE`; no kernel runs, and (c) runs its CPU side).
+    Returns the phase's JSON object."""
+    return _serve_moe(seed, torch.device("cpu"), 0, REHEARSAL_MOE)
+
+
+def _free(dev) -> None:
+    """Collect what the last part left (the engine and the hooks that
+    record its cache calls refer to each other, so its weights wait for
+    the cycle collector) and return the card's cached blocks."""
+    import gc
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _serve_moe(seed, dev, runs, spec):
+    t_phase = time.perf_counter()
+    llama = serve_moe_llama4(spec["llama4"], spec["parity"], seed, dev, runs)
+    emit({"part": "serve-moe llama4", **llama})
+    _free(dev)
+    deep = serve_moe_deepseek(spec["deepseek"], spec["parity"], seed, dev,
+                              runs)
+    emit({"part": "serve-moe deepseek", **deep})
+    _free(dev)
+    parity, f = moe_card_vs_cpu(spec["card_vs_cpu"], seed, dev)
+    fails = ([f"llama4: {x}" for x in llama["fails"]]
+             + [f"deepseek: {x}" for x in deep["fails"]]
+             + [f"card vs CPU: {x}" for x in f])
+    out = {"phase": "serve-moe", "llama4": llama, "deepseek": deep,
+           "card_vs_cpu": parity, "card_vs_cpu_tolerance": MOE_PARITY_BOUND,
+           "train_step_tolerance": TRAIN_STEP_BOUND,
+           "phase_s": time.perf_counter() - t_phase, "fails": fails}
+    emit(out)
+    for name, part in (("llama4", llama), ("deepseek", deep)):
+        emit({"metric": "serve_moe_prefill_ms_per_request", "arch": name,
+              "value": part.get("prefill_ms_per_request",
+                                part["prefill_ms"]),
+              "clock": "host, synchronized"})
+        emit({"metric": "serve_moe_decode_step_ms", "arch": name,
+              "value": part["decode_step_ms"], "clock": "host, synchronized"})
+        emit({"metric": "serve_moe_new_tokens_per_s", "arch": name,
+              "value": part["new_tokens_per_s"]})
+        emit({"metric": "serve_moe_peak_device_bytes", "arch": name,
+              "value": part["peak_bytes"]})
+        emit({"metric": "moe_dispatch_ms", "arch": name,
+              **{k: v for k, v in part["moe_dispatch"].items()
+                 if k.endswith("_ms") or k in ("capacity", "tokens")}})
+    if fails:
+        raise AssertionError("serve-moe: " + "; ".join(fails))
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 def _smi() -> str:
@@ -3025,6 +3646,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     t_out = run_train(seed=args.seed, runs=args.runs)
     k5_checks.append(t_out["k5_forward"])
+    torch.cuda.empty_cache()
+    m_out = run_serve_moe(seed=args.seed, runs=args.runs)
+    k5_checks += [m_out["llama4"]["k5_layer0"], m_out["deepseek"]["k5_layer0"]]
+    mla = m_out["deepseek"]["k5_mla_timing"]
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "fused_descent", "route": "cuda",
@@ -3071,9 +3696,14 @@ def main(argv=None) -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
-        "launches": s_out["launches"]["k5"] + t_out["k5_launches"],
-        "launches_by_path": {"serve": s_out["launches"]["k5"],
-                             "train": t_out["k5_launches"]},
+        "launches": s_out["launches"]["k5"] + t_out["k5_launches"]
+        + m_out["llama4"]["launches"]["k5"] + m_out["deepseek"]["k5_launches"],
+        "launches_by_path": {
+            "serve": s_out["launches"]["k5"], "train": t_out["k5_launches"],
+            "serve-moe llama4": m_out["llama4"]["launches"]["k5"],
+            "serve-moe deepseek": m_out["deepseek"]["k5_launches"]},
+        "builds": "bf16 (q/k, v) head dims padded to (64, 64), (128, 128) "
+                  "or (192, 128); float32 q/k up to 192, v up to 128",
         "max_abs_err": max(r["max_abs_err"] for r in k5_checks),
         "max_err_over_tol": max(r["max_err_over_tol"] for r in k5_checks),
         "tolerance": K5_BOUND,
@@ -3089,7 +3719,10 @@ def main(argv=None) -> int:
         "library": "torch.nn.functional.scaled_dot_product_attention "
                    "(kv repeated, is_causal=True)",
         "per": "one prefill layer: " + ", ".join(
-            f"{k}={v}" for k, v in k5t["shape"].items())}]})
+            f"{k}={v}" for k, v in k5t["shape"].items()),
+        "mla_192_128": {k: mla[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "bound_share", "shape")}}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -27,14 +27,15 @@
 // persistent, one block an SM, and walks items of 128 query rows of one
 // head, heaviest causal items first. A block is three warpgroups.
 // - The producer warpgroup gives up its registers (setmaxnreg) and one of
-//   its threads issues TMA loads: q into one of two buffers, then each live
+//   its threads issues TMA loads: q into one of two buffers (one at q/k
+//   head dim 192, below), then each live
 //   128-key tile of k and of v into a ring of two stages, with a full and
 //   an empty mbarrier for each buffer. The tensor maps are 4-D over the
 //   caller's tensors, (dim, row, head, batch) with the caller's strides,
 //   the kv head coordinate h / n_rep; boxes are 64 columns (128 bytes,
 //   128-byte swizzle) by 128 rows, and TMA fills rows past S or T and
-//   columns past the head dim with zeros, which pads head dims below 64 or
-//   128 inside shared memory.
+//   columns past the head dim with zeros, which pads head dims below 64,
+//   128 or 192 inside shared memory.
 // - Each consumer warpgroup (setmaxnreg 240) owns 64 of the item's rows.
 //   s = q kᵀ is wgmma m64n128k16 with q and k K-major in shared memory;
 //   the mask and the online softmax run on the float32 accumulator in
@@ -50,21 +51,31 @@
 // - Tiles the mask rules out for the item are never loaded; tiles it keeps
 //   whole for a warp's 16 rows skip the per-score test, and the others
 //   test each key against the row's bounds, computed once a tile.
+// The body is built for q/k and v head dims padded to (DQK, DV) = (64, 64),
+// (128, 128) or (192, 128); the last is MLA's (DeepSeek-V3: q/k 128 + 64
+// rotary, v 128). At (192, 128) two q buffers and two stages of k and v
+// would need 263,264 bytes of shared memory, above the 232,448 a block may
+// have, so that build keeps one q buffer (214,112 bytes): the next item's
+// q loads once every warp is done with the last q kᵀ of the item before,
+// while its last p·v runs. The accumulators are those of (128, 128): s and
+// o 64 x 128 float32 a consumer warpgroup; q kᵀ takes 12 k16 steps, not 8.
 // In float32 (the reference's tests) 256 threads run scalar FMAs from shared
-// memory, 64 query rows a block.
+// memory, 64 query rows a block, q/k head dims up to 192 and v up to 128.
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace fbt {
 namespace fa {
 
 constexpr int kBQ = 64;        // float32: query rows a block
 constexpr int kBK = 64;        // float32: keys a tile
-constexpr int kDMax = 128;     // largest head dim the kernel takes
+constexpr int kDQkMax = 192;   // largest q/k head dim the kernel takes
+constexpr int kDVMax = 128;    // largest v head dim the kernel takes
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -123,18 +134,29 @@ constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int kBox = 64;       // bf16 columns of one 128-byte swizzled row
 constexpr long long kHangCycles = 1ll << 33;  // ~4 s: a lost phase traps
 
-template <int D>  // head dims padded (with zeros, by TMA) to D, D in {64, 128}
+// q/k head dims padded (with zeros, by TMA) to DQK and v's to DV, (DQK, DV)
+// in {(64, 64), (128, 128), (192, 128)}
+template <int DQK, int DV>
 struct Smem {
-  static constexpr int kQ = kWBQ * D * 2;   // q tile: D / 64 boxes of 128 rows
-  static constexpr int kKV = kWBK * D * 2;  // one k (or v) tile
+  static constexpr int kQBufs = DQK > 128 ? 1 : 2;  // q buffers
+  static constexpr int kQ = kWBQ * DQK * 2;  // q tile: DQK / 64 boxes of 128 rows
+  static constexpr int kK = kWBK * DQK * 2;  // one k tile
+  static constexpr int kV = kWBK * DV * 2;   // one v tile
   // 1024 bytes of slack to align the tiles (the 128-byte swizzle repeats
   // every 1024 bytes), q, the k ring, the v ring, then the mbarriers
   static constexpr int kBytes =
-      1024 + 2 * kQ + 2 * kStages * kKV + 8 * (4 + 4 * kStages);
+      1024 + kQBufs * kQ + kStages * (kK + kV) + 8 * (4 + 4 * kStages);
+  // the q buffer of item round r, and the phase parity of its r-th use
+  static __device__ __forceinline__ int qbuf(int r) {
+    return kQBufs == 2 ? (r & 1) : 0;
+  }
+  static __device__ __forceinline__ uint32_t qlap(int r) {
+    return kQBufs == 2 ? ((r >> 1) & 1) : (r & 1);
+  }
 };
 
-// The mbarriers after the tiles: for each of the two q buffers full and
-// empty, then for each stage k full, v full, k empty, v empty. A full
+// The mbarriers after the tiles: for each of two q buffers (the second
+// unused where there is one) full and empty, then for each stage k full, v full, k empty, v empty. A full
 // barrier completes when the producer's expected bytes have landed; an
 // empty one when each of the 8 consumer warps has arrived. k and v have
 // barriers of their own because a warpgroup is done with k_i before it is
@@ -285,10 +307,10 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
 
 #undef FBT_F8
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* p,
+template <int DV>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2], const uint32_t* p,
                                          uint64_t b) {
-  if constexpr (D == 128)
+  if constexpr (DV == 128)
     wgmma_rs_n128(o, p, b);
   else
     wgmma_rs_n64(o, p, b);
@@ -316,23 +338,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // o += p v over one k/v stage: 16 keys a step, p's pairs of keys
 // 16kk + [0, 16) the A fragment of step kk, v read transposed
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+template <int DV>
+__device__ __forceinline__ void issue_pv(float (&o)[DV / 2],
                                          const uint32_t (&p)[kWBK / 4],
                                          uint32_t vb) {
 #pragma unroll
   for (int kk = 0; kk < kWBK / 16; ++kk)
-    wgmma_pv<D>(o, p + 4 * kk, sw128(vb + kk * 16 * 128, kWBK * 128, 1024));
+    wgmma_pv<DV>(o, p + 4 * kk, sw128(vb + kk * 16 * 128, kWBK * 128, 1024));
   wg_commit();
 }
 
-// s = q kᵀ for one k stage: 64 rows x 128 keys, D / 16 steps of k16, q and
-// k K-major
-template <int D>
+// s = q kᵀ for one k stage: 64 rows x 128 keys, DQK / 16 steps of k16, q
+// and k K-major
+template <int DQK>
 __device__ __forceinline__ void issue_qk(float (&s)[kWBK / 2], uint32_t qa,
                                          uint32_t kb) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
+  for (int kk = 0; kk < DQK / 16; ++kk)
     wgmma_ss_n128(
         s, sw128(qa + (kk >> 2) * kWBQ * 128 + (kk & 3) * 32, 16, 1024),
         sw128(kb + (kk >> 2) * kWBK * 128 + (kk & 3) * 32, 16, 1024), kk > 0);
@@ -418,7 +440,8 @@ __device__ __forceinline__ void softmax_tile(const Args& a, float (&s)[kWBK / 2]
 }
 
 // The work of a launch: n_qt · B · H items of 128 query rows, heaviest
-// causal first (item i is q tile n_qt - 1 - i / (B·H) of head i % (B·H)).
+// causal first (item i is q tile n_qt - 1 - i / (B·H) of head i % (B·H);
+// but see item_coords).
 // The grid is persistent, one block an SM; in round r block j takes item
 // r·G + j, or r·G + G - 1 - j on odd rounds (a snake, so no block gets the
 // heaviest item of every round).
@@ -427,16 +450,38 @@ __device__ __forceinline__ int item_of(int r) {
   return r * G + ((r & 1) ? G - 1 - j : j);
 }
 
-template <int D>
+// The (batch·head, q tile) of item `it`. The (64, 64) and (128, 128) builds
+// take the items heaviest causal first, as above. The (192, 128) build,
+// MLA's, takes them head by head (item i is q tile n_qt - 1 - i % n_qt of
+// head i / n_qt): MLA has a kv head for every query head, 128 of ~2 MB at
+// 3,072 tokens, far past the 50 MB L2, so the items that read one head's k
+// and v must run together for the L2 to serve them. Heaviest first runs
+// every head's tile of one row each round, and every item then reads its k
+// and v from device memory (~3 GB a call at 3,072 tokens, ~0.9 ms). The
+// snake pairs the heavy tiles one block takes in a round with light ones
+// in the next.
+template <bool HEAD_MAJOR>
+__device__ __forceinline__ void item_coords(int it, int BH, int n_qt, int& bh,
+                                            int& qt) {
+  if constexpr (HEAD_MAJOR) {
+    bh = it / n_qt;
+    qt = n_qt - 1 - (it - bh * n_qt);
+  } else {
+    bh = it % BH;
+    qt = n_qt - 1 - it / BH;
+  }
+}
+
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, const Args a) {
-  using L = Smem<D>;
+  using L = Smem<DQK, DV>;
   extern __shared__ unsigned char smem[];
-  const uint32_t sq = (smem_u32(smem) + 1023u) & ~1023u;  // two q buffers
-  const uint32_t sk = sq + 2 * L::kQ, sv = sk + kStages * L::kKV;
-  const Bars bar{sv + kStages * L::kKV};
+  const uint32_t sq = (smem_u32(smem) + 1023u) & ~1023u;  // the q buffers
+  const uint32_t sk = sq + L::kQBufs * L::kQ, sv = sk + kStages * L::kK;
+  const Bars bar{sv + kStages * L::kV};
 
   const int BH = a.B * a.H, n_qt = (a.S + kWBQ - 1) / kWBQ;
   const int n_items = n_qt * BH;
@@ -463,27 +508,27 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 0) {
       int stage = 0, phase = 0;
       for (int r = 0, it = item_of(0); it < n_items; it = item_of(++r)) {
-        const int bh = it % BH, qt = n_qt - 1 - it / BH;
+        int bh, qt;
+        item_coords<(DQK > 128)>(it, BH, n_qt, bh, qt);
         const int b = bh / a.H, h = bh - b * a.H, kh = h / a.n_rep;
         const int q0 = qt * kWBQ, q_last = min(q0 + kWBQ, a.S) - 1;
-        const int qb = r & 1;  // the q buffer of this item
-        mbar_wait(bar.q_empty(qb), ((r >> 1) & 1) ^ 1);  // first use passes
+        const int qb = L::qbuf(r);  // the q buffer of this item
+        mbar_wait(bar.q_empty(qb), L::qlap(r) ^ 1);  // first use passes
         mbar_expect_tx(bar.q_full(qb), L::kQ);
-        for (int c = 0; c < D / kBox; ++c)
+        for (int c = 0; c < DQK / kBox; ++c)
           tma_load(sq + qb * L::kQ + c * kWBQ * 128, &tq, bar.q_full(qb),
                    c * kBox, q0, h, b);
         for (int kt = next_live(a, q0, q_last, 0, n_kt, kWBK); kt < n_kt;
              kt = next_live(a, q0, q_last, kt + 1, n_kt, kWBK)) {
-          const uint32_t off = stage * L::kKV;
           mbar_wait(bar.k_empty(stage), phase ^ 1);  // the first lap passes
-          mbar_expect_tx(bar.k_full(stage), L::kKV);
-          for (int c = 0; c < D / kBox; ++c)
-            tma_load(sk + off + c * kWBK * 128, &tk, bar.k_full(stage),
-                     c * kBox, kt * kWBK, kh, b);
+          mbar_expect_tx(bar.k_full(stage), L::kK);
+          for (int c = 0; c < DQK / kBox; ++c)
+            tma_load(sk + stage * L::kK + c * kWBK * 128, &tk,
+                     bar.k_full(stage), c * kBox, kt * kWBK, kh, b);
           mbar_wait(bar.v_empty(stage), phase ^ 1);
-          mbar_expect_tx(bar.v_full(stage), L::kKV);
-          for (int c = 0; c < D / kBox; ++c)
-            tma_load(sv + off + c * kWBK * 128, &tv, bar.v_full(stage),
+          mbar_expect_tx(bar.v_full(stage), L::kV);
+          for (int c = 0; c < DV / kBox; ++c)
+            tma_load(sv + stage * L::kV + c * kWBK * 128, &tv, bar.v_full(stage),
                      c * kBox, kt * kWBK, kh, b);
           if (++stage == kStages) stage = 0, phase ^= 1;
         }
@@ -510,7 +555,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     __syncwarp();
     if (lane == 0) mbar_arrive(b);
   };
-  float o[D / 2];  // m64nD accumulator: (row, 8j + 2 t4 + c) at o[4j + 2r + c]
+  float o[DV / 2];  // m64nDV accumulator: (row, 8j + 2 t4 + c) at o[4j + 2r + c]
   float s[kWBK / 2], corr[2];
   uint32_t p[kWBK / 4];  // p of the previous tile in bf16 pairs: the A
                          // fragments of its p·v (key pairs 16kk + [0, 16))
@@ -518,25 +563,26 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   if (cw == 1) named_arrive(1);  // the first warpgroup issues first
   int stage = 0, phase = 0;
   for (int r = 0, it = item_of(0); it < n_items; it = item_of(++r)) {
-    const int bh = it % BH, qt = n_qt - 1 - it / BH;
+    int bh, qt;
+    item_coords<(DQK > 128)>(it, BH, n_qt, bh, qt);
     const int b = bh / a.H, h = bh - b * a.H;
     const int q0 = qt * kWBQ, q_last = min(q0 + kWBQ, a.S) - 1;
     const int rq0 = q0 + 64 * cw + 16 * warp;  // this warp's first row
     const int qr = rq0 + (lane >> 2);          // this thread's rows qr, qr + 8
-    const int qb = r & 1;
+    const int qb = L::qbuf(r);
     // this warpgroup's 64 rows of q, one 128-byte column box after another
     const uint32_t qa = sq + qb * L::kQ + cw * 64 * 128;
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+    for (int j = 0; j < DV / 2; ++j) o[j] = 0.f;
     float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.f, 0.f};  // rows qr and qr + 8
 
-    mbar_wait(bar.q_full(qb), (r >> 1) & 1);
+    mbar_wait(bar.q_full(qb), L::qlap(r));
     int kt = next_live(a, q0, q_last, 0, n_kt, kWBK);
     if (kt < n_kt) {
       mbar_wait(bar.k_full(stage), phase);
       named_sync(1 + cw);
       wg_fence();
-      issue_qk<D>(s, qa, sk + stage * L::kKV);
+      issue_qk<DQK>(s, qa, sk + stage * L::kK);
       named_arrive(1 + (cw ^ 1));
       wg_wait<0>();
 #pragma unroll
@@ -554,8 +600,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         mbar_wait(bar.k_full(stage), phase);
         named_sync(1 + cw);
         wg_fence();
-        issue_qk<D>(s, qa, sk + stage * L::kKV);
-        issue_pv<D>(o, p, sv + prev * L::kKV);
+        issue_qk<DQK>(s, qa, sk + stage * L::kK);
+        issue_pv<DV>(o, p, sv + prev * L::kV);
         named_arrive(1 + (cw ^ 1));
         wg_wait<1>();  // s is in; the p·v may still run
 #pragma unroll
@@ -564,12 +610,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         softmax_tile(a, s, m_r, l_r, corr, kt * kWBK, rq0, qr, t4, scale2);
         wg_wait<0>();  // the p·v is done: o and p are free
 #pragma unroll
-        for (int j = 0; j < D / 2; ++j) pin(o[j]);
+        for (int j = 0; j < DV / 2; ++j) pin(o[j]);
 #pragma unroll
         for (int j = 0; j < kWBK / 4; ++j) pin(p[j]);
         arrive(bar.v_empty(prev));
 #pragma unroll
-        for (int j = 0; j < D / 2; ++j) o[j] *= corr[(j >> 1) & 1];
+        for (int j = 0; j < DV / 2; ++j) o[j] *= corr[(j >> 1) & 1];
 #pragma unroll
         for (int j = 0; j < kWBK / 4; ++j)
           p[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
@@ -578,11 +624,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       mbar_wait(bar.v_full(stage), phase);  // the last tile's p·v
       named_sync(1 + cw);
       wg_fence();
-      issue_pv<D>(o, p, sv + stage * L::kKV);
+      issue_pv<DV>(o, p, sv + stage * L::kV);
       named_arrive(1 + (cw ^ 1));
       wg_wait<0>();
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) pin(o[j]);
+      for (int j = 0; j < DV / 2; ++j) pin(o[j]);
 #pragma unroll
       for (int j = 0; j < kWBK / 4; ++j) pin(p[j]);
       arrive(bar.v_empty(stage));
@@ -600,7 +646,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       // f32 ulp of the quotient, far below the bf16 rounding that follows
       const float inv = 1.f / fmaxf(l_r[rr], 1e-20f);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         const int d = j * 8 + 2 * t4;  // hv is a multiple of 8: d + 1 < hv
         if (d < a.hv)
           *reinterpret_cast<__nv_bfloat162*>(og + qi * a.o_ss + d) =
@@ -678,11 +724,11 @@ flash_fwd_f32(const Args a, const F32Layout L) {
   float m_row = kNeg, l_row = 0.f;
   // this thread's outputs: rows tr + 16i, dims tc + 16j
   const int tr = tid >> 4, tc = tid & 15;
-  float acc[4][kDMax / 16];
+  float acc[4][kDVMax / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < kDMax / 16; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kDVMax / 16; ++j) acc[i][j] = 0.f;
 
   const int n_kt = (a.kv_len + kBK - 1) / kBK;
   const int q_last = q0 + q_rows - 1;
@@ -752,13 +798,13 @@ flash_fwd_f32(const Args a, const F32Layout L) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < kDMax / 16; ++j) acc[i][j] *= cr[i];
+        for (int j = 0; j < kDVMax / 16; ++j) acc[i][j] *= cr[i];
       for (int c = 0; c < k_rows; ++c) {
         float p[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) p[i] = Ss[(tr + 16 * i) * L.lds + c];
 #pragma unroll
-        for (int j = 0; j < kDMax / 16; ++j) {
+        for (int j = 0; j < kDVMax / 16; ++j) {
           const int d = tc + 16 * j;
           if (d < a.hv) {
             const float vv = Vs[c * L.ldv + d];
@@ -781,7 +827,7 @@ flash_fwd_f32(const Args a, const F32Layout L) {
     if (r >= q_rows) continue;
     const float den = fmaxf(l_s[r], 1e-20f);
 #pragma unroll
-    for (int j = 0; j < kDMax / 16; ++j) {
+    for (int j = 0; j < kDVMax / 16; ++j) {
       const int d = tc + 16 * j;
       if (d < a.hv) og[r * a.o_ss + d] = acc[i][j] / den;
     }
@@ -851,7 +897,7 @@ inline bool make_map(CUtensorMap* map, const void* base, int cols, int rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   const int Hk = a.H / a.n_rep;
@@ -859,9 +905,10 @@ cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
       !make_map(&tk, a.k, a.hd, a.T, Hk, a.B, a.k_st, a.k_sh, a.k_sb, kWBK) ||
       !make_map(&tv, a.v, a.hv, a.T, Hk, a.B, a.v_st, a.v_sh, a.v_sb, kWBK))
     return cudaErrorInvalidValue;
-  constexpr int smem = Smem<D>::kBytes;
+  constexpr int smem = Smem<DQK, DV>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_wgmma<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
@@ -869,8 +916,8 @@ cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
           cudaSuccess)
     return e;
   const int items = a.B * a.H * ((a.S + kWBQ - 1) / kWBQ);
-  flash_fwd_wgmma<D><<<items < sms ? items : sms, kThreads, smem, stream>>>(
-      tq, tk, tv, a);
+  flash_fwd_wgmma<DQK, DV>
+      <<<items < sms ? items : sms, kThreads, smem, stream>>>(tq, tk, tv, a);
   return cudaGetLastError();
 }
 
@@ -888,8 +935,20 @@ inline cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
 }  // namespace fa
 }  // namespace fbt
 
+// The bf16 build for q/k head dim hd and v head dim hv: the narrowest of
+// (64, 64), (128, 128) and (192, 128) that holds both (hd <= 192, hv <= 128).
+template <typename F>
+inline auto with_build(int hd, int hv, F&& f) {
+  if (hd > 128) return f(std::integral_constant<int, 192>{},
+                         std::integral_constant<int, 128>{});
+  if (hd > 64 || hv > 64) return f(std::integral_constant<int, 128>{},
+                                   std::integral_constant<int, 128>{});
+  return f(std::integral_constant<int, 64>{}, std::integral_constant<int, 64>{});
+}
+
 // Plain C entry, bound with ctypes. dtype 0 = float32, 1 = bfloat16. The
-// caller checks shapes (S, T >= 1, B*H <= 65535, head dims <= 128,
+// caller checks shapes (S, T >= 1, B*H <= 65535, q/k head dim <= 192 and v
+// head dim <= 128,
 // kv_len <= T; for bf16 head dims a multiple of 8, bases 16-byte aligned and
 // strides a multiple of 8 elements), allocates the output and keeps every
 // tensor alive. Returns cudaGetLastError() after the launch
@@ -903,7 +962,7 @@ extern "C" int fbt_flash_attention(
     int window, int prefix_len, float scale, void* stream) {
   using namespace fbt::fa;
   if (S < 1 || T < 1 || B < 1 || H < 1 || n_rep < 1 || H % n_rep != 0 ||
-      B * H > 65535 || hd < 1 || hd > kDMax || hv < 1 || hv > kDMax ||
+      B * H > 65535 || hd < 1 || hd > kDQkMax || hv < 1 || hv > kDVMax ||
       kv_len < 0 || kv_len > T)
     return cudaErrorInvalidValue;
   Args a;
@@ -918,19 +977,29 @@ extern "C" int fbt_flash_attention(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_f32(a, s);
   if (dtype != 1 || hd % 8 != 0 || hv % 8 != 0) return cudaErrorInvalidValue;
-  return (hd > 64 || hv > 64) ? launch_wgmma<128>(a, s) : launch_wgmma<64>(a, s);
+  return with_build(hd, hv, [&](auto dqk, auto dv) {
+    return launch_wgmma<decltype(dqk)::value, decltype(dv)::value>(a, s);
+  });
 }
 
-// What the bf16 kernel for head dims padded to `d` (64 or 128) asks of the
+// What the bf16 build for q/k head dim hd and v head dim hv asks of the
 // card: registers a thread as compiled (before setmaxnreg moves them from
 // the producer to the consumers), static and dynamic shared memory in
 // bytes, and the blocks that fit on one SM. Returns a CUDA error code.
-extern "C" int fbt_flash_attention_attrs(int d, int* regs, int* static_smem,
-                                         int* dyn_smem, int* blocks_per_sm) {
+extern "C" int fbt_flash_attention_attrs(int hd, int hv, int* regs,
+                                         int* static_smem, int* dyn_smem,
+                                         int* blocks_per_sm) {
   using namespace fbt::fa;
-  const void* fn = d > 64 ? reinterpret_cast<const void*>(flash_fwd_wgmma<128>)
-                          : reinterpret_cast<const void*>(flash_fwd_wgmma<64>);
-  const int dyn = d > 64 ? Smem<128>::kBytes : Smem<64>::kBytes;
+  if (hd < 1 || hd > kDQkMax || hv < 1 || hv > kDVMax)
+    return cudaErrorInvalidValue;
+  const void* fn = nullptr;
+  int dyn = 0;
+  with_build(hd, hv, [&](auto dqk, auto dv) {
+    constexpr int Q = decltype(dqk)::value, V = decltype(dv)::value;
+    fn = reinterpret_cast<const void*>(flash_fwd_wgmma<Q, V>);
+    dyn = Smem<Q, V>::kBytes;
+    return 0;
+  });
   cudaFuncAttributes fa;
   cudaError_t e = cudaFuncGetAttributes(&fa, fn);
   if (e != cudaSuccess) return e;

@@ -14,10 +14,13 @@ import torch
 from ..nvcc import CSRC, load
 
 __all__ = ["launch", "check_inputs", "tma_refusal", "kernel_attributes",
-           "SOURCE", "HEAD_DIM_MAX"]
+           "SOURCE", "HEAD_DIM_QK_MAX", "HEAD_DIM_V_MAX"]
 
 SOURCE = CSRC / "flash_attention.cu"
-HEAD_DIM_MAX = 128
+# the widest heads the kernel takes: q/k up to 192 (MLA's 128 + 64 rotary),
+# v up to 128; the bf16 body is built for (64, 64), (128, 128), (192, 128)
+HEAD_DIM_QK_MAX = 192
+HEAD_DIM_V_MAX = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN: Optional[ctypes._CFuncPtr] = None
 
@@ -84,9 +87,9 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention: the kernel takes float32 or "
                         f"bfloat16, got {q.dtype}")
-    if hd > HEAD_DIM_MAX or hv > HEAD_DIM_MAX:
-        raise ValueError(f"flash_attention: head dims {hd}, {hv} above "
-                         f"{HEAD_DIM_MAX}")
+    if hd > HEAD_DIM_QK_MAX or hv > HEAD_DIM_V_MAX:
+        raise ValueError(f"flash_attention: head dims q/k {hd}, v {hv} above "
+                         f"{HEAD_DIM_QK_MAX}, {HEAD_DIM_V_MAX}")
     if B * H > 65535:
         raise ValueError(f"flash_attention: B*H = {B * H} above 65535")
     if not 0 <= kv_len <= T:
@@ -141,16 +144,17 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, n_rep: int,
     return out, True
 
 
-def kernel_attributes(head_dim: int) -> dict:
-    """What the bf16 kernel for ``head_dim`` asks of the current card: its
+def kernel_attributes(head_dim: int, v_head_dim: int) -> dict:
+    """What the bf16 build for q/k head dim ``head_dim`` and v head dim
+    ``v_head_dim`` asks of the current card: its
     registers a thread as compiled (before ``setmaxnreg`` moves them from
     the producer warpgroup to the consumers), static and dynamic shared
     memory in bytes, and the blocks that fit on one SM."""
     fn = load(SOURCE).fbt_flash_attention_attrs
-    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 4
     fn.restype = ctypes.c_int
     vals = [ctypes.c_int() for _ in range(4)]
-    err = fn(head_dim, *[ctypes.byref(x) for x in vals])
+    err = fn(head_dim, v_head_dim, *[ctypes.byref(x) for x in vals])
     if err != 0:
         raise RuntimeError(f"flash_attention: attributes failed with CUDA "
                            f"error {err}")

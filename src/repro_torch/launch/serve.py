@@ -5,6 +5,22 @@ on the card unless asked for the CPU:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \\
       --requests 24 --shared-prefix 48 [--device cpu]
+
+Any decoder-only GQA arch of the registry serves, the MoE llama4-scout
+included (``--arch llama4-scout-17b-a16e``); an MLA arch (deepseek-v3) is
+refused by the engine, whose page store holds GQA pages. ``--full`` serves
+the published widths instead of ``SMOKE``'s (on the card; ``--layers``
+cuts the depth so the weights fit, e.g. llama4-scout at 8 layers is ~39 GB
+of bf16 weights):
+
+  python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e --full \\
+      --layers 8 --prompt-len 3072 --shared-prefix 2048 --requests 8
+
+The page store holds every block of the requests (``--pages``, at least
+512 as the reference's), so nothing is evicted: the engine, like the
+reference's, does not pin the pages a wave matched, and a publish that
+evicted one before its load would load another block's KV. A smaller
+``--pages`` is refused.
 """
 from __future__ import annotations
 
@@ -20,7 +36,9 @@ from ..core.fbtree import resolve_target
 from ..models import lm
 from ..serving import Engine, ServeConfig
 
-__all__ = ["make_requests", "main"]
+__all__ = ["make_requests", "pages_needed", "main"]
+
+BLOCK_TOKENS = 16
 
 
 def make_requests(n: int, vocab: int, shared_prefix: int, plen: int,
@@ -39,6 +57,13 @@ def make_requests(n: int, vocab: int, shared_prefix: int, plen: int,
     return out
 
 
+def pages_needed(n_requests: int, prompt_len: int,
+                 block_tokens: int = BLOCK_TOKENS) -> int:
+    """Pages for every full block of every request: a run over this many
+    never evicts."""
+    return n_requests * (prompt_len // block_tokens)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="yi-9b")
@@ -49,14 +74,29 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--full", action="store_true",
+                    help="the arch's published widths, not its SMOKE config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
+    ap.add_argument("--pages", type=int, default=None,
+                    help="page store size (default: every block of the "
+                         "requests, at least 512)")
     args = ap.parse_args(argv)
+    need = pages_needed(args.requests, args.prompt_len)
+    if args.pages is None:
+        args.pages = max(512, need)
+    elif args.pages < need:
+        ap.error(f"--pages {args.pages} cannot hold the requests' {need} "
+                 f"blocks; the engine does not pin matched pages, so an "
+                 f"eviction could load another block's KV")
     dev = resolve_target(args.device)
-    cfg = get_config(args.arch, smoke=True)
+    over = {} if args.layers is None else {"n_layers": args.layers}
+    cfg = get_config(args.arch, smoke=not args.full, **over)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = lm.init_params(cfg, gen)
     scfg = ServeConfig(max_batch=args.max_batch,
                        s_max=args.prompt_len + args.max_new + 8,
-                       block_tokens=16, n_pages=512,
+                       block_tokens=BLOCK_TOKENS, n_pages=args.pages,
                        max_new_tokens=args.max_new)
     eng = Engine(cfg, params, scfg)
     reqs = make_requests(args.requests, cfg.vocab, args.shared_prefix,
@@ -70,6 +110,7 @@ def main(argv=None):
     print(json.dumps({
         "device": str(dev),
         "requests": len(done),
+        "pages": args.pages,
         "all_done": all(r.done for r in done),
         "new_tokens": toks,
         "tok_per_s": round(toks / dt, 1),

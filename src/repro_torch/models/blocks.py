@@ -1,22 +1,27 @@
 """Decoder block wiring — the port's counterpart of ``repro.models.blocks``.
 
-A block = pre-norm mixer + residual + pre-norm FFN + residual. This slice
-ports the dense kinds (``"dense"`` and ``"gqa+mlp"``: GQA attention and a
-dense MLP); the plan :func:`block_kinds` is whole, and every other kind
-raises ``NotImplementedError`` naming its ROADMAP item.
+A block = pre-norm mixer + residual + pre-norm FFN + residual. The port
+has the decoder kinds of the dense and MoE families: the mixer GQA
+attention (``"dense"``, ``"gqa+..."``) or MLA (``"mla+..."``), the FFN a
+dense MLP (``"dense"``, ``"...+mlp"``; ``"mla+mlp"`` takes ``d_ff_dense``
+when it is set) or MoE (``"...+moe"``, whose aux loss ``block_forward``
+returns). The plan :func:`block_kinds` is whole; the mamba, hybrid and
+enc-dec kinds raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 from . import attention as A
+from . import mla as MLA
+from . import moe as MOE
 from .config import ModelConfig
 from .layers import Params, apply_norm, mlp_apply, mlp_params, norm_params
 
-__all__ = ["DENSE_KINDS", "block_kinds", "block_params", "block_forward",
+__all__ = ["PORTED_KINDS", "block_kinds", "block_params", "block_forward",
            "block_prefill", "block_decode"]
 
-DENSE_KINDS = ("dense", "gqa+mlp")
+PORTED_KINDS = ("dense", "gqa+mlp", "gqa+moe", "mla+mlp", "mla+moe")
 
 
 def block_kinds(cfg: ModelConfig) -> Tuple[Tuple[str, int], ...]:
@@ -40,52 +45,81 @@ def block_kinds(cfg: ModelConfig) -> Tuple[Tuple[str, int], ...]:
     raise ValueError(f)
 
 
-def _dense_only(kind: str) -> None:
-    if kind not in DENSE_KINDS:
+def _ported(kind: str) -> None:
+    if kind not in PORTED_KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet: the MoE, MLA, mamba, "
-            f"hybrid and enc-dec blocks come with the other model families "
-            f"(ROADMAP queue 1, \"The other model families\")")
+            f"block kind {kind!r} is not ported yet: the mamba, hybrid and "
+            f"enc-dec blocks come with their families (ROADMAP queue 1, "
+            f"\"The other model families\")")
+
+
+def _mixer(p, cfg: ModelConfig, kind: str, h, positions, mask):
+    if kind.startswith("mla"):
+        return MLA.mla_forward(p["attn"], cfg, h, positions, mask)
+    return A.attn_forward(p["attn"], cfg, h, positions, mask)
 
 
 # ------------------------------------------------------------------ params
 def block_params(gen, cfg: ModelConfig, kind: str) -> Params:
-    _dense_only(kind)
+    _ported(kind)
     d, dtype = cfg.d_model, cfg.dtype
-    return {"ln1": norm_params(gen, d, cfg.norm, dtype),
-            "attn": A.attn_params(gen, cfg),
-            "ln2": norm_params(gen, d, cfg.norm, dtype),
-            "mlp": mlp_params(gen, d, cfg.d_ff, cfg.mlp, dtype)}
+    p: Params = {"ln1": norm_params(gen, d, cfg.norm, dtype),
+                 "attn": (MLA.mla_params(gen, cfg) if kind.startswith("mla")
+                          else A.attn_params(gen, cfg)),
+                 "ln2": norm_params(gen, d, cfg.norm, dtype)}
+    if kind.endswith("+moe"):
+        p["moe"] = MOE.moe_params(gen, cfg)
+    else:
+        ff = (cfg.d_ff_dense if kind == "mla+mlp" and cfg.d_ff_dense
+              else cfg.d_ff)
+        p["mlp"] = mlp_params(gen, d, ff, cfg.mlp, dtype)
+    return p
+
+
+def _ffn(p, cfg: ModelConfig, h):
+    """The block's FFN on the normed h: (y, MoE aux loss or 0.0)."""
+    if "moe" in p:
+        return MOE.moe_apply(p["moe"], cfg, h)
+    return mlp_apply(p["mlp"], h, cfg.mlp), 0.0
 
 
 # ------------------------------------------------------------------ forward
 def block_forward(p: Params, cfg: ModelConfig, kind: str, x, positions,
                   mask):
     """Training/prefill-compute path (no cache). Returns (x, aux_loss)."""
-    _dense_only(kind)
+    _ported(kind)
     h = apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
-    x = x + A.attn_forward(p["attn"], cfg, h, positions, mask)
-    h = apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h, cfg.mlp), 0.0
+    x = x + _mixer(p, cfg, kind, h, positions, mask)
+    y, aux = _ffn(p, cfg, apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps))
+    return x + y, aux
 
 
 def block_prefill(p, cfg: ModelConfig, kind: str, x, positions, mask,
                   cache_len: int):
-    """Like block_forward but also emits this layer's decode cache."""
-    _dense_only(kind)
+    """Like block_forward but also emits this layer's decode cache (a
+    ``KVCache``, or an ``MLACache`` for the MLA kinds)."""
+    _ported(kind)
     h = apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
-    y, cache = A.attn_prefill(p["attn"], cfg, h, positions, mask, cache_len)
+    if kind.startswith("mla"):
+        y, cache = MLA.mla_prefill(p["attn"], cfg, h, positions, mask,
+                                   cache_len)
+    else:
+        y, cache = A.attn_prefill(p["attn"], cfg, h, positions, mask,
+                                  cache_len)
     x = x + y
-    h = apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h, cfg.mlp), cache
+    y, _ = _ffn(p, cfg, apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps))
+    return x + y, cache
 
 
 def block_decode(p, cfg: ModelConfig, kind: str, x, pos, cache):
     """One-token step. ``cache`` is this layer's cache slice, updated in
     place; returns (x, cache)."""
-    _dense_only(kind)
+    _ported(kind)
     h = apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
-    y, cache = A.attn_decode(p["attn"], cfg, h, pos, cache)
+    if kind.startswith("mla"):
+        y, cache = MLA.mla_decode(p["attn"], cfg, h, pos, cache)
+    else:
+        y, cache = A.attn_decode(p["attn"], cfg, h, pos, cache)
     x = x + y
-    h = apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h, cfg.mlp), cache
+    y, _ = _ffn(p, cfg, apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps))
+    return x + y, cache

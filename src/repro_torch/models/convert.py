@@ -10,7 +10,11 @@ Adafactor's ``vr``, ``vc``, and the int32 scalar ``step`` (a 0-d tensor
 here, a 0-d array there), so both packages can start from one state.
 bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy arrays, which
 ``torch.from_numpy`` refuses, so they travel as their 16-bit patterns
-(``int16`` views), bit for bit.
+(``int16`` views), bit for bit. The MoE trees (the float32 ``router``, the
+``router_bias`` buffer, stacked experts, the ``mtp`` subtree) are such
+trees too. :func:`cache_from_numpy` and :func:`cache_to_numpy` carry a
+decode cache (the reference's ``KVCache`` or ``MLACache``, a named tuple
+of arrays) across to the port's named tuple of the same fields and back.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ import torch
 
 from .layers import Params
 
-__all__ = ["params_from_numpy", "params_to_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy", "cache_from_numpy",
+           "cache_to_numpy"]
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -53,3 +58,19 @@ def params_to_numpy(params: Params) -> dict:
     (bf16 as ``ml_dtypes.bfloat16``)."""
     return {k: params_to_numpy(v) if isinstance(v, Mapping) else _array(v)
             for k, v in params.items()}
+
+
+def cache_from_numpy(cache, device):
+    """A reference decode cache (``KVCache(k, v)`` or ``MLACache(ckv,
+    krope)``, arrays) -> the port's named tuple of those fields, tensors on
+    ``device``, bit for bit."""
+    from .attention import KVCache
+    from .mla import MLACache
+    kind = MLACache if hasattr(cache, "ckv") else KVCache
+    return kind(*(_tensor(np.asarray(a), device) for a in cache))
+
+
+def cache_to_numpy(cache) -> dict:
+    """A port cache (``KVCache`` or ``MLACache``) -> {field: numpy array}
+    (bf16 as ``ml_dtypes.bfloat16``)."""
+    return {f: _array(t) for f, t in zip(cache._fields, cache)}

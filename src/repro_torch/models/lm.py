@@ -1,5 +1,6 @@
 """Model assembly: init / forward / prefill / decode — the port's
-counterpart of ``repro.models.lm``, for the dense decoder-only families.
+counterpart of ``repro.models.lm``, for the decoder-only dense and MoE
+families (GQA or MLA attention; DeepSeek's MTP head).
 
 Parameters are a dict of tensors keyed and shaped as the reference's
 pytree: per-segment stacks ``p["seg0"][...]`` of shape ``[n_layers, ...]``.
@@ -12,9 +13,10 @@ autograd, ``"full"`` ``torch.utils.checkpoint`` of the block,
 non-batched matrix products (the reference's
 ``checkpoint_dots_with_no_batch_dims``) and recomputes the rest.
 :func:`prefill` and :func:`decode_step` are the serving engine's eager
-inference calls (run under ``torch.inference_mode()``). The moe, mla, ssm,
-hybrid, enc-dec and vlm families raise ``NotImplementedError`` naming
-their ROADMAP item.
+inference calls (run under ``torch.inference_mode()``); their cache is a
+``KVCache`` of ``[n_layers, ...]`` stacks, or an ``MLACache`` for MLA, and
+each layer writes its row in place. The ssm, hybrid, enc-dec and vlm
+families raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -27,20 +29,21 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from . import attention as A
 from . import blocks as BLK
+from . import mla as MLA
 from .config import ModelConfig
 from .layers import Params, apply_norm, dense_init, embed_init, norm_params
 
-__all__ = ["init_params", "unembed", "forward", "init_cache", "decode_step",
-           "prefill", "layer_params"]
+__all__ = ["init_params", "unembed", "forward", "mtp_logits", "init_cache",
+           "decode_step", "prefill", "layer_params"]
 
 
-def _dense_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.attention != "gqa":
+def _ported_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (only "
-            f"dense GQA decoders are); the moe, mla, ssm, hybrid, enc-dec "
-            f"and vlm families come later (ROADMAP queue 1, \"The other "
-            f"model families\")")
+            f"{cfg.name}: the {cfg.family} family is not ported yet (the "
+            f"dense and moe decoders are); the ssm, hybrid, enc-dec and vlm "
+            f"families come later (ROADMAP queue 1, \"The other model "
+            f"families\")")
 
 
 def layer_params(seg: Params, i: int) -> Params:
@@ -69,7 +72,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random parameters drawn from ``gen``, on ``gen``'s device; the same
     keys, shapes and dtypes as the reference's ``init_params`` (the numbers
     differ: another generator)."""
-    _dense_family(cfg)
+    _ported_family(cfg)
     d, dtype = cfg.d_model, cfg.dtype
     p: Params = {"embed": embed_init(gen, cfg.vocab, d, dtype),
                  "final_norm": norm_params(gen, d, cfg.norm, dtype)}
@@ -83,6 +86,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
                 seg = _alloc_stacks(layer, n)
             _copy_layer(seg, layer, j)
         p[f"seg{i}"] = seg
+    if cfg.mtp:
+        d = cfg.d_model
+        p["mtp"] = {
+            "proj": dense_init(gen, 2 * d, d, dtype=dtype),
+            "norm_h": norm_params(gen, d, cfg.norm, dtype),
+            "norm_e": norm_params(gen, d, cfg.norm, dtype),
+            "block": BLK.block_params(gen, cfg, BLK.block_kinds(cfg)[-1][0]),
+        }
     return p
 
 
@@ -134,8 +145,9 @@ def _unbind_layers(seg: Params, n: int):
 
 
 def forward(p: Params, cfg: ModelConfig, batch: Dict):
-    """-> (logits [B,S,V], aux_loss (float32 scalar), hidden [B,S,d])."""
-    _dense_family(cfg)
+    """-> (logits [B,S,V], aux_loss (float32 scalar, the sum over the MoE
+    layers), hidden [B,S,d])."""
+    _ported_family(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed(p, tokens)
@@ -152,12 +164,36 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict):
     return unembed(p, cfg, h), aux, h
 
 
+def mtp_logits(p: Params, cfg: ModelConfig, hidden, tokens):
+    """DeepSeek's multi-token-prediction head: predict token t+2 from the
+    trunk's hidden at t combined with the embedding of token t+1."""
+    mtp = p["mtp"]
+    B, S = tokens.shape
+    nxt = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+    he = apply_norm(_embed(p, nxt), mtp["norm_e"], cfg.norm, cfg.norm_eps)
+    hh = apply_norm(hidden, mtp["norm_h"], cfg.norm, cfg.norm_eps)
+    x = torch.cat([hh, he], dim=-1) @ mtp["proj"]
+    x, _ = BLK.block_forward(mtp["block"], cfg, BLK.block_kinds(cfg)[-1][0],
+                             x, _positions(B, S, x.device),
+                             A.MaskSpec("causal"))
+    x = apply_norm(x, p["final_norm"], cfg.norm, cfg.norm_eps)
+    return unembed(p, cfg, x)
+
+
 # ===================================================================== caches
 def init_cache(cfg: ModelConfig, B: int, S_max: int, device=None):
-    """Zero KV cache ``[n_layers, B, S_max, n_kv, hd]`` (bf16) on ``device``
-    (the card when None)."""
-    _dense_family(cfg)
+    """Zero cache on ``device`` (the card when None), bf16: a ``KVCache``
+    ``[n_layers, B, S_max, n_kv, hd]``, or for MLA an ``MLACache`` of
+    ``[n_layers, B, S_max, kv_lora]`` and ``[n_layers, B, S_max, rope]``."""
+    _ported_family(cfg)
+    if cfg.attention == "mla":
+        return MLA.init_mla_cache(cfg, B, S_max, cfg.n_layers, device=device)
     return A.init_kv_cache(cfg, B, S_max, cfg.n_layers, device=device)
+
+
+def _layer_cache(cache, i: int):
+    """Row ``i`` of a stacked cache (``KVCache`` or ``MLACache``): views."""
+    return type(cache)(*(t[i] for t in cache))
 
 
 # ===================================================================== decode
@@ -165,14 +201,13 @@ def decode_step(p: Params, cfg: ModelConfig, tokens, pos, cache):
     """One new token for every sequence. tokens [B] int32, pos [B] int32.
     Returns (logits [B, V], cache). Each layer's new k/v row is written
     into ``cache`` in place, and the same cache comes back."""
-    _dense_family(cfg)
+    _ported_family(cfg)
     x = _embed(p, tokens)[:, None, :]          # [B,1,d]
     off = 0
     for i, (kind, n) in enumerate(BLK.block_kinds(cfg)):
         for j in range(n):
-            c = A.KVCache(cache.k[off + j], cache.v[off + j])
             x, _ = BLK.block_decode(layer_params(p[f"seg{i}"], j), cfg,
-                                    kind, x, pos, c)
+                                    kind, x, pos, _layer_cache(cache, off + j))
         off += n
     h = apply_norm(x, p["final_norm"], cfg.norm, cfg.norm_eps)
     return unembed(p, cfg, h)[:, 0], cache
@@ -186,7 +221,7 @@ def prefill(p: Params, cfg: ModelConfig, batch: Dict, S_max: int):
     full [B,S,V] tensor never materializes). Each layer's cache goes
     straight into its row of the ``[n_layers, ...]`` cache.
     """
-    _dense_family(cfg)
+    _ported_family(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed(p, tokens)
@@ -198,8 +233,8 @@ def prefill(p: Params, cfg: ModelConfig, batch: Dict, S_max: int):
         for j in range(n):
             x, c = BLK.block_prefill(layer_params(p[f"seg{i}"], j), cfg,
                                      kind, x, positions, mask, S_max)
-            cache.k[off + j].copy_(c.k)
-            cache.v[off + j].copy_(c.v)
+            for t, ct in zip(_layer_cache(cache, off + j), c):
+                t.copy_(ct)
         off += n
     h = apply_norm(x[:, -1:], p["final_norm"], cfg.norm, cfg.norm_eps)
     return unembed(p, cfg, h)[:, 0], cache

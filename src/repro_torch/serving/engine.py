@@ -11,7 +11,10 @@ store and the prefix cache's tree. The page store is a bf16 tensor (the
 reference keeps a host float32 numpy array; every value written to it is a
 bf16 cache entry, so this is exact), and admission writes a request's slot
 of the cache in place rather than copying the whole cache through the host.
-Model calls run under ``torch.inference_mode()``.
+Model calls run under ``torch.inference_mode()``. It serves the dense and
+MoE GQA decoders (yi-9b, llama4-scout); an MLA model (deepseek-v3) is
+refused at construction, since the page store holds GQA k/v pages only,
+as the reference's does.
 """
 from __future__ import annotations
 
@@ -64,6 +67,14 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig):
         if cfg.family in ("ssm", "hybrid", "encdec", "vlm"):
             raise ValueError("the engine serves decoder-only KV families")
+        if cfg.attention == "mla":
+            # as in the reference, whose page store holds GQA k/v pages of
+            # [block, n_kv, hd] only: serve MLA through lm.prefill and
+            # lm.decode_step
+            raise ValueError(
+                f"{cfg.name}: the engine's page store holds GQA k/v pages, "
+                f"not MLA's latent cache; serve it through lm.prefill and "
+                f"lm.decode_step")
         self.cfg, self.params, self.scfg = cfg, params, scfg
         self.device = params["embed"].device
         with torch.inference_mode():

@@ -1,6 +1,7 @@
 """Loss assembly — the port's counterpart of ``repro.train.losses``:
-shifted-token cross entropy plus the MoE auxiliary loss. The vlm and
-DeepSeek MTP branches raise until their families are ported."""
+shifted-token cross entropy, plus the MoE auxiliary loss and DeepSeek's
+MTP loss (token t+2 from the trunk at t). The vlm branch raises until its
+family is ported."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -18,14 +19,22 @@ AUX_COEF = 0.01
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict
             ) -> Tuple[torch.Tensor, Dict]:
-    """-> (loss, metrics {"ce", "aux", "loss"}), float32 scalars."""
-    if cfg.family == "vlm" or cfg.mtp:
+    """-> (loss, metrics {"ce", "aux", ["mtp_ce",] "loss"}), float32
+    scalars."""
+    if cfg.family == "vlm":
         raise NotImplementedError(
-            f"{cfg.name}: the vlm text-only loss and the MTP loss need the "
-            f"vlm and moe families' forward, not ported yet (ROADMAP queue "
-            f"1, \"The other model families\")")
-    logits, aux, _ = lm.forward(params, cfg, batch)
+            f"{cfg.name}: the vlm text-only loss needs the vlm family's "
+            f"forward, not ported yet (ROADMAP queue 1, \"The other model "
+            f"families\")")
+    logits, aux, hidden = lm.forward(params, cfg, batch)
     tokens = batch["tokens"]
     ce = softmax_xent(logits[:, :-1], tokens[:, 1:])
     loss = ce + AUX_COEF * aux
-    return loss, {"ce": ce, "aux": aux, "loss": loss}
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp:
+        mlogits = lm.mtp_logits(params, cfg, hidden, tokens)
+        mtp_ce = softmax_xent(mlogits[:, :-2], tokens[:, 2:])
+        loss = loss + cfg.mtp_weight * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    metrics["loss"] = loss
+    return loss, metrics

@@ -646,6 +646,29 @@ def test_cuda_k5_p_layout_with_identity_v(cuda_device, hd, causal):
     assert launched and r["max_err_over_tol"] <= 1.0, r
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", (False, True))
+def test_cuda_k5_p_layout_with_identity_v_at_192_128(cuda_device, causal):
+    """The identity-v check of the (192, 128) build: q/k head dim 192, v =
+    the 128 x 128 identity, so the output is the softmax weights of the
+    128 keys (12 k-steps of q kᵀ, one q buffer)."""
+    from chip_smoke import _err_over_tol, k5_tolerance
+    from repro_torch.kernels.flash_attention import cuda as k5cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(device="cuda").manual_seed(192 + causal)
+    S, T, hd = 200, 128, 192
+    q = torch.randn((1, S, hd), generator=g, device="cuda").bfloat16()
+    k = torch.randn((1, T, hd), generator=g, device="cuda").bfloat16()
+    v = torch.eye(T, device="cuda", dtype=torch.bfloat16)[None]
+    kw = dict(scale=hd ** -0.5, kv_len=T, causal=causal, window=0,
+              prefix_len=0)
+    got, launched = k5cuda.launch(q[:, None], k[:, None], v[:, None],
+                                  n_rep=1, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    r = _err_over_tol(got[:, :, 0], want, k5_tolerance(q, k, v, want, **kw))
+    assert launched and r["max_err_over_tol"] <= 1.0, r
+
+
 # Faults planted in the bf16 kernel (the served path's flash_fwd_wgmma),
 # each (what the source says, what the mutant says): the bound of
 # chip_smoke.k5_tolerance must reject every one on K5_CASES.
@@ -696,10 +719,11 @@ def k5_mutants():
 def test_cuda_k5_bound_rejects_planted_faults(cuda_device, k5_mutants, name,
                                               monkeypatch):
     """The bf16 bound is tight enough to see a wrong kernel: each mutant of
-    ``K5_MUTANTS``, swapped in for the kernel, fails ``k5_sweep``. The
-    worst error, the worst error over the bound and, beside them, the
-    largest |v| of 2^-6 (the size of a bound scaled to max|v|) are
-    printed."""
+    ``K5_MUTANTS``, swapped in for the kernel, fails ``k5_sweep``, and
+    fails one of its cases of q/k head dim above 128 (the (192, 128)
+    build) too. The worst error, the worst error over the bound and,
+    beside them, the largest |v| of 2^-6 (the size of a bound scaled to
+    max|v|) are printed."""
     import json
     from repro_torch.kernels.flash_attention import cuda as k5cuda
     monkeypatch.setattr(k5cuda, "SOURCE", k5_mutants[name])
@@ -709,9 +733,11 @@ def test_cuda_k5_bound_rejects_planted_faults(cuda_device, k5_mutants, name,
                       "max_abs_err": out["max_abs_err"],
                       "max_err_over_tol": out["max_err_over_tol"],
                       "cases_failed": len(out["failures"]),
-                      "cases": out["cases"]}))
+                      "cases": out["cases"],
+                      "failed_cases": out["failed_cases"]}))
     assert out["failures"], name
     assert out["max_err_over_tol"] > 1.0
+    assert any(K5_CASES[i]["hd"] > 128 for i in out["failed_cases"]), name
 
 
 @pytest.mark.cuda
@@ -732,7 +758,10 @@ def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take(
         k5.flash_sdpa(q, kv, kv.cpu(), CAUSAL, 2, 0.25)
     big = torch.zeros((1, 8, 2, 256), device="cuda")
     with pytest.raises(ValueError):
-        k5.flash_sdpa(big, big, big, CAUSAL, 1, 0.25)  # head dim > 128
+        k5.flash_sdpa(big, big, big, CAUSAL, 1, 0.25)  # head dim > 192
+    wide = torch.zeros((1, 8, 2, 192), device="cuda")
+    with pytest.raises(ValueError):
+        k5.flash_sdpa(wide, wide, wide, CAUSAL, 1, 0.25)  # v head dim > 128
     buf = torch.zeros(1 + 8 * 4 * 16, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="TMA"):   # base 2 bytes off
         k5.flash_sdpa(buf[1:].view(1, 8, 4, 16), kv.bfloat16(),
@@ -880,6 +909,33 @@ def test_cuda_k5_grads_match_plain(cuda_device, dtype, case):
     assert ops.LAUNCHES - n0 == 1          # the forward: one K5 launch
     assert r["forward"]["max_err_over_tol"] <= 1.0, r
     assert r["backward"]["max_err_over_tol"] <= 1.0, r
+
+
+@pytest.mark.cuda
+def test_cuda_moe_train_step_matches_cpu(cuda_device):
+    """One train step of deepseek-v3's SMOKE config (MoE with the sigmoid
+    router, MLA, the MTP loss) at seq 2,304 from one state on the card and
+    on the CPU: chip_smoke's check (d), within TRAIN_STEP_BOUND; K5 once a
+    layer and once in the MTP block, a microbatch."""
+    res, fails = train_parity(0, cuda_device, arch="deepseek-v3-671b")
+    assert not fails, (fails, res)
+    assert res["k5_launches"] == (3 + 1) * 2
+
+
+@pytest.mark.cuda
+def test_cuda_k5_attributes_of_each_build(cuda_device):
+    """The three bf16 builds, as ``kernel_attributes`` reads them: (192,
+    128) has one q buffer (214,112 bytes of shared memory), the others two;
+    one block a SM each."""
+    from repro_torch.kernels.flash_attention import cuda as k5cuda
+    want = {(64, 64): 1024 + 2 * 16384 + 2 * 2 * 16384 + 96,
+            (128, 128): 1024 + 2 * 32768 + 2 * 2 * 32768 + 96,
+            (192, 128): 1024 + 49152 + 2 * (49152 + 32768) + 96}
+    for (hd, hv), smem in want.items():
+        a = k5cuda.kernel_attributes(hd, hv)
+        assert a["dynamic_smem_bytes"] == smem and a["blocks_per_sm"] == 1, a
+    assert k5cuda.kernel_attributes(136, 64) == k5cuda.kernel_attributes(
+        192, 128)
 
 
 @pytest.mark.cuda

@@ -283,6 +283,11 @@ def _qkv(H=4, Hk=2, S=64, T=64, hd=64, hv=64, dtype=torch.bfloat16):
     ("last dim strided", lambda: (_qkv()[0].transpose(2, 3), *_qkv()[1:]), {},
      ValueError),
     ("head dim 256", lambda: _qkv(hd=256, hv=256), {}, ValueError),
+    ("bf16 q/k 192, v 128 (MLA)", lambda: _qkv(hd=192, hv=128), {}, None),
+    ("float32 q/k 136, v 64", lambda: _qkv(hd=136, hv=64,
+                                           dtype=torch.float32), {}, None),
+    ("v head dim 192", lambda: _qkv(hd=192, hv=192), {}, ValueError),
+    ("q/k head dim 200", lambda: _qkv(hd=200, hv=128), {}, ValueError),
     ("kv_len past T", lambda: _qkv(), dict(kv_len=65), ValueError),
     ("bf16 base not aligned",
      lambda: (_heads(_bf16((1, 64, 4, 64), offset=1)), *_qkv()[1:]), {},

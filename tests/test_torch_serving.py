@@ -42,6 +42,18 @@ from repro_torch.serving import chain_keys
 
 from test_torch_tree import assert_arrays_equal
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run this module's torch ops on one thread: its tensors are small and
+    gain little from intra-op threads, and under the test workers the
+    threads of every process fight for the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BACKENDS = ("torch", "fused")
 POOL_FIELDS = ("used", "refs", "last_access", "hits")
 

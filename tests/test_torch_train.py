@@ -53,9 +53,20 @@ from repro_torch.train import optim as O
 from repro_torch.train.data import DataConfig, TokenStream
 from repro_torch.train.train_step import (init_state, make_train_step,
                                           state_template)
-from repro_torch.train.tree import tree_leaves, tree_paths
+from repro_torch.train.tree import tree_leaves, tree_map, tree_paths
 
 import chip_smoke
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run this module's torch ops on one thread: its tensors are small and
+    gain little from intra-op threads, and under the test workers the
+    threads of every process fight for the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _gen(seed=0):
@@ -486,6 +497,39 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
                             "wall_s"]
     assert last["restarts"] == 1
     assert last["last5_loss"] < last["first5_loss"]
+
+
+def test_train_step_bound_covers_an_adamw_sign_flip():
+    """``chip_smoke.param_step_bound`` on the CPU alone: one AdamW step of
+    yi-9b's SMOKE params (bf16) with its gradients, against the step with
+    every gradient's sign flipped, the widest gap two devices' gradients
+    can open (Adam's first update is +-lr an element): inside the bound,
+    which 2 lr + 2^-7 |cpu| misses by the rounding of the larger side; a
+    step at 1.1 lr falls outside it."""
+    cfg = get_config("yi-9b", smoke=True)
+    ocfg = O.OptConfig(lr=1e-3, warmup=1, total_steps=10)
+    state = init_state(cfg, ocfg, _gen(0))
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=_gen(1))
+                     .to(p.dtype), state["params"])
+
+    def step(g, lr):
+        st = tree_map(lambda t: t.clone(), state)
+        c = O.OptConfig(lr=lr, warmup=1, total_steps=10)
+        return dict(tree_paths(O.opt_update(c, st["params"], g,
+                                            st["opt"])[0]))
+    want = step(grads, 1e-3)
+    flip = step(tree_map(lambda g: -g, grads), 1e-3)
+    wide = step(tree_map(lambda g: -g, grads), 1.1e-3)
+    old_misses = 0
+    for k, w in want.items():
+        d = (flip[k].float() - w.float()).abs()
+        assert bool((d <= chip_smoke.param_step_bound(w.float(), 1e-3))
+                    .all()), k
+        old_misses += int((d > 2e-3 + 2.0 ** -7 * w.float().abs()).sum())
+        d = (wide[k].float() - w.float()).abs()
+        assert not bool((d <= chip_smoke.param_step_bound(w.float(), 1e-3))
+                        .all()), k
+    assert old_misses > 0
 
 
 def test_rehearse_train():

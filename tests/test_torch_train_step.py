@@ -65,6 +65,18 @@ from repro_torch.train.train_step import (_grads_of, init_state,
                                           make_eval_step, make_train_step)
 from repro_torch.train.tree import tree_map, tree_paths
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run this module's torch ops on one thread: its tensors are small and
+    gain little from intra-op threads, and under the test workers the
+    threads of every process fight for the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ("yi-9b", "qwen2.5-14b", "qwen3-14b", "nemotron-4-15b")
 
 
@@ -233,7 +245,9 @@ def test_remat_dots_saves_the_matrix_products_only():
 
 
 def test_unported_losses_raise_naming_the_roadmap():
-    for arch in ("paligemma-3b", "deepseek-v3-671b"):
+    """The vlm loss and the families whose forward is not ported raise;
+    deepseek-v3's MTP loss runs since the MoE slice (test_torch_moe.py)."""
+    for arch in ("paligemma-3b", "falcon-mamba-7b", "whisper-medium"):
         cfg = get_config(arch, smoke=True)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PL.loss_fn({}, cfg, {"tokens": torch.zeros((1, 4),
