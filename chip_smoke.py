@@ -13,7 +13,9 @@ leaf-filter kernel K4), and LLM serving through the FB+-tree prefix cache
 (``serving.Engine`` on yi-9b at full size; every long prefill layer is one
 launch of the flash-attention kernel K5), training, and the MoE family
 (llama4-scout through ``Engine``, deepseek-v3's MLA with K5 at q/k head
-dim 192):
+dim 192), the vlm family (paligemma-3b, K5 at head dim 256 under the
+prefix-LM mask) and the enc-dec family (whisper-medium, K5 without a mask
+over 32,768 frames):
 
 1. the card's name and power limit;
 2. build of every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
@@ -138,7 +140,23 @@ dim 192):
     the CPU (:data:`MOE_PARITY_BOUND`), and a deepseek SMOKE train step
     (MoE, MLA, MTP) within :data:`TRAIN_STEP_BOUND`. It prints prefill ms
     a request, decode step ms, new tokens/s, peak memory and each
-    dispatch's ms.
+    dispatch's ms;
+17. ``serve-vlm``: paligemma-3b as published (:data:`SERVE_VLM`; 18
+    layers, heads of 256, 256 image patches before the text under the
+    prefix-LM mask) through ``lm.prefill`` (4 x (256 + 2,048) tokens) and
+    32 ``lm.decode_step`` calls: K5's (256, 256) build once a layer a
+    prefill, K5 on layer 0's real q, k, v within :func:`k5_tolerance` and
+    timed there and on one 8,192-token sequence beside
+    ``scaled_dot_product_attention`` with the same mask, decode against
+    forward, the SMOKE model on the card against the CPU
+    (:data:`FAMILY_PARITY_BOUND`) and a SMOKE train step
+    (:data:`TRAIN_STEP_BOUND`);
+18. ``serve-whisper``: whisper-medium as configured
+    (:data:`SERVE_WHISPER`; 24 + 24 layers) through ``lm.prefill`` (2
+    requests of 32,768 frames and 256 tokens: K5 without a mask at
+    32,768^2 in every encoder layer and at S != T in every cross
+    attention) and 32 decode steps, with the checks of ``serve-vlm`` (K5's
+    encoder check on the first and last 1,024 rows of layer 0).
 
 Each phase prints one JSON line. The line before the last holds the
 kernels table; the last line is ``{"ok": true, "device": ...}``. The script
@@ -147,7 +165,9 @@ port's sources are not beside it, or when any check fails. Run:
 ``python3 chip_smoke.py``; ``rehearse_serve()`` runs the serve phase's
 checks on the CPU at SMOKE size, ``rehearse_shard()`` the shard phases'
 at 6,000 keys, ``rehearse_train()`` the train phase's at SMOKE size,
-``rehearse_serve_moe()`` the serve-moe phase's at SMOKE size.
+``rehearse_serve_moe()`` the serve-moe phase's at SMOKE size,
+``rehearse_serve_vlm()`` and ``rehearse_serve_whisper()`` the serve-vlm
+and serve-whisper phases' at SMOKE size.
 """
 from __future__ import annotations
 
@@ -1994,9 +2014,15 @@ REHEARSAL_MIX = dict(smoke=True, n_req=16, plen=96, shared=64, new_tokens=8,
 # key. "sdpa" cases go through ops.flash_sdpa ([B,S,H,hd], kv not repeated),
 # "flat" cases straight to cuda.launch ([BH,S,hd] with kv_len < T, which
 # flash_sdpa never asks for). A case with "hv" has a v head dim of its own:
-# the last six take the (192, 128) build, MLA's widths (S = T = 3,072
-# causal, a window, a prefix, kv_len < T, odd S and T, n_rep 1 and 4; q/k
-# 136 padded to 192 in shared memory).
+# the six after the first ten take the (192, 128) build, MLA's widths (S =
+# T = 3,072 causal, a window, a prefix, kv_len < T, odd S and T, n_rep 1
+# and 4; q/k 136 padded to 192 in shared memory); the next six the (256,
+# 256) build, PaliGemma's (one sequence of its served prefill, 256 patches
+# + 2,048 text tokens under the prefix-LM mask; a prefix of 200, no
+# multiple of the 64-key tile; a window; kv_len < T; S != T without a
+# mask; q/k 200 and v 136 padded to 256); the last is the (64, 64) build
+# without a mask at S != T past one q tile and over several key tiles
+# (whisper's cross attention).
 K5_CASES = (
     dict(api="sdpa", B=2, S=200, T=200, H=8, Hk=2, hd=32, mask=("causal", 0, 0)),
     dict(api="sdpa", B=1, S=130, T=70, H=4, Hk=4, hd=16, mask=("full", 0, 0)),
@@ -2025,6 +2051,20 @@ K5_CASES = (
          mask=("causal", 0, 0)),
     dict(api="flat", BH=2, S=200, T=256, hd=136, hv=64, kv_len=96,
          mask=("causal", 40, 0)),
+    dict(api="sdpa", B=1, S=2304, T=2304, H=8, Hk=1, hd=256, hv=256,
+         mask=("causal", 0, 256)),
+    dict(api="sdpa", B=2, S=457, T=457, H=4, Hk=1, hd=256, hv=256,
+         mask=("causal", 0, 200)),
+    dict(api="sdpa", B=1, S=1100, T=1100, H=8, Hk=2, hd=256, hv=256,
+         mask=("causal", 300, 0)),
+    dict(api="flat", BH=3, S=301, T=333, hd=256, hv=256, kv_len=200,
+         mask=("causal", 0, 0)),
+    dict(api="sdpa", B=1, S=131, T=71, H=4, Hk=1, hd=256, hv=256,
+         mask=("full", 0, 0)),
+    dict(api="flat", BH=2, S=200, T=256, hd=200, hv=136, kv_len=96,
+         mask=("causal", 40, 0)),
+    dict(api="sdpa", B=2, S=300, T=1000, H=16, Hk=16, hd=64,
+         mask=("full", 0, 0)),
 )
 
 
@@ -2088,7 +2128,8 @@ def k5_tolerance(q, k, v, want, *, scale, kv_len, causal, window=0,
 
 
 def _err_over_tol(got, want, tol) -> dict:
-    err = (got.float() - want.float()).abs()
+    # a NaN error is an infinite one, so the maxima below cannot drop it
+    err = (got.float() - want.float()).abs().nan_to_num(nan=float("inf"))
     ratio = torch.where(err == 0, 0.0, err / tol)   # a zero bound broken: inf
     return dict(max_abs_err=float(err.max()) if err.numel() else 0.0,
                 max_err_over_tol=float(ratio.max()) if err.numel() else 0.0,
@@ -2180,45 +2221,125 @@ def k5_bound(B, S, T, H, Hk, hd, hv, mask, elem_bytes=2):
                                  else "bytes"), flops, nbytes
 
 
-def k5_timing(q, k, v, n_rep: int, runs: int, scale=None, metric="k5_ms"):
-    """K5 at a served shape (causal): CUDA-event median of the kernel, of
-    its plain version and of one ``scaled_dot_product_attention`` call on
-    the same inputs (kv repeated, ``is_causal=True``; timed here as a
-    yardstick, never called by the port), and the bound. ``scale`` is
-    hd^-0.5 when None. Prints the times as ``metric`` and a ``k5_design``
-    line for the build of these head dims."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops
+PLAIN_CHUNK_BYTES = 4 << 30   # float32 logits the plain version holds at once
+
+
+def plain_sdpa(q, k, v, mask, n_rep: int, scale: float):
+    """K5's plain version (``flash_sdpa_ref``) on q [B,S,H,hd], k/v
+    [B,T,Hk,hv], one (sequence, kv head) group at a time when the whole
+    call's float32 logits would pass ``PLAIN_CHUNK_BYTES`` (whisper's
+    encoder: 32 heads of 32,768^2, ~137 GB); each group is the same
+    function on its own heads, so the result is the same."""
     from repro_torch.kernels.flash_attention.ref import flash_sdpa_ref
-    from repro_torch.models.attention import CAUSAL
-    B, S, H, hd = q.shape
+    B, S, H, _ = q.shape
     T, Hk, hv = k.shape[1], k.shape[2], v.shape[-1]
-    scale = scale or hd ** -0.5
-    kern = lambda: ops.flash_sdpa(q, k, v, CAUSAL, n_rep, scale)
-    plain = lambda: flash_sdpa_ref(q, k, v, CAUSAL, n_rep, scale)
+    if 4 * B * H * S * T <= PLAIN_CHUNK_BYTES:
+        return flash_sdpa_ref(q, k, v, mask, n_rep, scale)
+    out = torch.empty((B, S, H, hv), dtype=q.dtype, device=q.device)
+    for b in range(B):
+        for g in range(Hk):
+            hs = slice(g * n_rep, (g + 1) * n_rep)
+            out[b:b + 1, :, hs] = flash_sdpa_ref(
+                q[b:b + 1, :, hs], k[b:b + 1, :, g:g + 1],
+                v[b:b + 1, :, g:g + 1], mask, n_rep, scale).view(
+                    1, S, n_rep, hv)
+    return out.reshape(B, S, H * hv)
+
+
+def k5_check_rows(got, q, k, v, mask, n_rep: int, scale: float,
+                  rows: int = 1024) -> dict:
+    """:func:`k5_check` of K5's output ``got`` [B,S,H*hv] on the first and
+    the last ``rows`` query rows only, where the whole [S, T] logits of the
+    plain version and its bound do not fit the card (whisper's encoder at
+    S = T = 32,768). Without a causal mask a row's output depends on that
+    row's query alone, so the rows compared are those of the whole call."""
+    if mask.kind == "causal":
+        raise ValueError("k5_check_rows: rows depend on their index under "
+                         "a causal mask")
+    S = q.shape[1]
+    head = min(rows, S)
+    idx = torch.cat([torch.arange(head),
+                     torch.arange(max(head, S - rows), S)]).to(q.device)
+    r = k5_check(got[:, idx], q[:, idx], k, v, mask, n_rep, scale)
+    return dict(r, rows_checked=int(idx.numel()), rows=S)
+
+
+def sdpa_library(q, k, v, mask, n_rep: int, scale: float):
+    """One ``scaled_dot_product_attention`` call computing what K5 computes
+    on q [B,S,H,hd], k/v [B,T,Hk,hv] under ``mask`` (kv repeated to H
+    heads; ``is_causal=True`` for a plain causal mask, none for ``FULL``, a
+    boolean ``attn_mask`` for a window or a prefix), the backend PyTorch
+    picks for it (``torch._fused_sdp_choice``; null where this PyTorch
+    cannot say) and the call as a thunk. Timed as a yardstick, never
+    called by the port."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ref import key_mask
+    S, T = q.shape[1], k.shape[1]
     qh = q.transpose(1, 2)
     kh = k.repeat_interleave(n_rep, dim=2).transpose(1, 2)
     vh = v.repeat_interleave(n_rep, dim=2).transpose(1, 2)
-    lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
-                                                 scale=scale)
+    causal = mask.kind == "causal"
+    am, is_causal = None, False
+    if causal and (mask.window or mask.prefix_len):
+        am = key_mask(S, T, True, mask.window, mask.prefix_len, q.device)
+    else:
+        is_causal = causal
+    backend = None
+    try:
+        from torch.nn.attention import SDPBackend
+        backend = SDPBackend(torch._fused_sdp_choice(
+            qh, kh, vh, am, 0.0, is_causal, scale=scale)).name
+    except (AttributeError, RuntimeError, ValueError):  # not exposed here
+        pass
+
+    def call():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am,
+                                              is_causal=is_causal, scale=scale)
+    what = ("is_causal=True" if is_causal else "a boolean attn_mask"
+            if am is not None else "no mask")
+    return call, backend, f"kv repeated, {what}"
+
+
+def k5_timing(q, k, v, n_rep: int, runs: int, scale=None, metric="k5_ms",
+              mask=None, plain_runs=None):
+    """K5 at a served shape under ``mask`` (causal when None): CUDA-event
+    median of the kernel, of its plain version (:func:`plain_sdpa`, over
+    ``plain_runs`` runs, default a fifth of ``runs`` and at least 3) and of
+    one ``scaled_dot_product_attention`` call on the same inputs with the
+    same mask (:func:`sdpa_library`), and the bound. ``scale`` is hd^-0.5
+    when None. Prints the times as ``metric`` and a ``k5_design`` line for
+    the build of these head dims."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.attention import CAUSAL
+    mask = mask or CAUSAL
+    B, S, H, hd = q.shape
+    T, Hk, hv = k.shape[1], k.shape[2], v.shape[-1]
+    scale = scale or hd ** -0.5
+    kern = lambda: ops.flash_sdpa(q, k, v, mask, n_rep, scale)
+    plain = lambda: plain_sdpa(q, k, v, mask, n_rep, scale)
+    lib, backend, lib_what = sdpa_library(q, k, v, mask, n_rep, scale)
+    plain_runs = plain_runs or max(3, runs // 5)
     for _ in range(2):
-        kern(), plain(), lib()
+        kern(), lib()
+    plain()
     n0 = ops.LAUNCHES
     k_ms, k_all = _event_ms(kern, runs)
     timed_launches = ops.LAUNCHES - n0
-    p_ms, _ = _event_ms(plain, max(3, runs // 5))
+    p_ms, _ = _event_ms(plain, plain_runs)
     l_ms, _ = _event_ms(lib, runs)
     lib_err = float((lib().transpose(1, 2).reshape(B, S, H * hv).float()
                      - kern().float()).abs().max())
     b_ms, b_by, flops, nbytes = k5_bound(B, S, T, H, Hk, hd, hv,
-                                         ("causal", 0, 0), q.element_size())
+                                         tuple(mask), q.element_size())
     out = dict(ms=k_ms, min_ms=min(k_all), max_ms=max(k_all), runs=runs,
-               timed_launches=timed_launches, plain_ms=p_ms, library_ms=l_ms,
+               timed_launches=timed_launches, plain_ms=p_ms,
+               plain_runs=plain_runs, library_ms=l_ms,
+               library_backend=backend, library=lib_what,
                library_vs_kernel_max_abs_err=lib_err, bound_ms=b_ms,
                bound_by=b_by, flops=flops, bytes=nbytes,
                tflops_per_s=flops / k_ms / 1e9, bound_share=b_ms / k_ms,
                shape=dict(B=B, S=S, T=T, H=H, Hk=Hk, hd=hd, hv=hv,
-                          dtype=str(q.dtype)))
+                          mask=list(mask), dtype=str(q.dtype)))
     emit({"metric": metric, **out})
     emit({"metric": "k5_design", **k5_design(hd, hv)})
     return out
@@ -2255,21 +2376,26 @@ def k5_design(head_dim: int, v_head_dim: int) -> dict:
     return out
 
 
-def capture_layers(params, cfg, toks, layers) -> dict:
+def capture_layers(params, cfg, toks, layers, patches=None) -> dict:
     """For each layer in ``layers``, what it sees in one forward of ``toks``
-    [B, S], by running the blocks one at a time up to the last of them:
-    q, k, v and the scale K5 gets there (MLA's 192-wide q/k for deepseek),
-    ``n_rep``, the layer's kind and parameters, and its FFN input (the
-    normed hidden after its attention)."""
+    [B, S] (after the vlm's projected ``patches``, under its prefix-LM
+    mask, when given), by running the blocks one at a time up to the last
+    of them: q, k, v and the scale K5 gets there (MLA's 192-wide q/k for
+    deepseek), ``n_rep``, the mask, the layer's kind and parameters, and
+    its FFN input (the normed hidden after its attention)."""
     from repro_torch.models import attention as A
     from repro_torch.models import blocks as BLK
     from repro_torch.models import lm
     from repro_torch.models import mla as MLA
     from repro_torch.models.layers import apply_norm
     x = params["embed"][toks.long()]
-    B, S = toks.shape
+    pre = 0
+    if patches is not None:
+        x = torch.cat([patches.to(x.dtype) @ params["proj"], x], dim=1)
+        pre = cfg.n_patches
+    B, S = x.shape[:2]
     pos = torch.arange(S, dtype=torch.int32, device=toks.device).expand(B, S)
-    mask = A.MaskSpec("causal", cfg.window, 0)
+    mask = A.MaskSpec("causal", cfg.window, pre)
     out, i = {}, 0
     for si, (kind, n) in enumerate(BLK.block_kinds(cfg)):
         for j in range(n):
@@ -2286,8 +2412,8 @@ def capture_layers(params, cfg, toks, layers) -> dict:
                 x = x + BLK._mixer(pl, cfg, kind, h, pos, mask)
                 f_in = apply_norm(x, pl["ln2"], cfg.norm, cfg.norm_eps)
                 out[i] = dict(q=q, k=k, v=v, scale=scale,
-                              n_rep=q.shape[2] // k.shape[2], kind=kind,
-                              params=pl, ffn_in=f_in)
+                              n_rep=q.shape[2] // k.shape[2], mask=mask,
+                              kind=kind, params=pl, ffn_in=f_in)
                 x = x + BLK._ffn(pl, cfg, f_in)[0]
             else:
                 x, _ = BLK.block_forward(pl, cfg, kind, x, pos, mask)
@@ -2756,21 +2882,34 @@ def step_compare(got, want, mg, mw, lr: float) -> list:
     return fails
 
 
+def k5_calls(cfg) -> int:
+    """The attention calls of one forward pass (each a K5 launch on the
+    card when its S·T passes ``FLASH_THRESH``): one a layer, one in the MTP
+    block, and for enc-dec the encoder's layers and the decoder's cross
+    attention too."""
+    n = cfg.n_layers + cfg.mtp
+    if cfg.family == "encdec":
+        n += cfg.n_enc_layers + cfg.n_layers
+    return n
+
+
 def train_parity(seed: int, dev, arch: str = TRAIN_ARCH,
-                 seq: int = TRAIN_PARITY["seq"]) -> tuple:
+                 seq: int = TRAIN_PARITY["seq"], **over) -> tuple:
     """Check (d): one ``make_train_step`` step of ``arch``'s SMOKE config
-    (yi-9b's; deepseek-v3's in ``serve-moe``: MoE, MLA and the MTP loss) at
-    :data:`TRAIN_PARITY` (sequences of ``seq`` tokens) from one state on
-    ``dev`` and on the CPU (the CPU runs ``_sdpa_flash``), within
-    :data:`TRAIN_STEP_BOUND`. On the CPU alone it runs the CPU side.
-    Returns (result, failures)."""
+    (yi-9b's; deepseek-v3's in ``serve-moe``: MoE, MLA and the MTP loss;
+    paligemma-3b's and whisper-medium's in ``serve-vlm`` and
+    ``serve-whisper``, their patches or frames from ``TokenStream``; ``over``
+    overrides the config) at :data:`TRAIN_PARITY` (sequences of ``seq``
+    tokens) from one state on ``dev`` and on the CPU (the CPU runs
+    ``_sdpa_flash``), within :data:`TRAIN_STEP_BOUND`. On the CPU alone it
+    runs the CPU side. Returns (result, failures)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as k5
     from repro_torch.train import optim as O
     from repro_torch.train.data import DataConfig, TokenStream
     from repro_torch.train.train_step import init_state, make_train_step
     from repro_torch.train.tree import tree_map
-    cfg = get_config(arch, smoke=True)
+    cfg = get_config(arch, smoke=True, **over)
     ocfg = O.OptConfig(lr=1e-3, warmup=1, total_steps=10)
     state = init_state(cfg, ocfg, torch.Generator().manual_seed(seed))
     batch = TokenStream(DataConfig(vocab=cfg.vocab,
@@ -2792,8 +2931,8 @@ def train_parity(seed: int, dev, arch: str = TRAIN_ARCH,
         fails.append(f"non-finite CPU metrics {cpu_m}")
     if str(dev) != "cpu":
         p, m, launched = runs[str(dev)]
-        # one launch a layer a microbatch, and one in the MTP block
-        want = (cfg.n_layers + cfg.mtp) * TRAIN_PARITY["n_micro"]
+        # one launch an attention call a microbatch
+        want = k5_calls(cfg) * TRAIN_PARITY["n_micro"]
         if launched != want:
             fails.append(f"card step: {launched} K5 launches, expected {want}")
         fails += step_compare(p, runs["cpu"][0], m, cpu_m, ocfg.lr)
@@ -3538,6 +3677,394 @@ def _serve_moe(seed, dev, runs, spec):
     return out
 
 
+# ------------------------------------------------------- vlm and enc-dec
+
+# paligemma-3b as published (arXiv:2407.07726: 18 layers, d_model 2,048, 8
+# query heads and 1 kv head of 256, geglu d_ff 16,384, vocab 257,216, tied
+# embedding; a SigLIP stub: 256 patch embeddings of width 1,152 drawn from
+# the seed), uncut: ~2.51B parameters, ~5.0 GB bf16. "serve": prefills of 4
+# sequences of 256 patches + 2,048 text tokens (S = 2,304, so K5 runs once
+# a layer with the prefix-LM mask; one untimed warm-up, then the median of
+# three) and 32 decode steps through lm.prefill and lm.decode_step (the
+# engine refuses vlm, as the reference's does). "long" is K5 timed on one
+# 8,192-token sequence (256 patches + 7,936 text). "parity" is decode vs
+# forward on one sequence of 256 patches + 1,844 text tokens (2,100 in
+# all), 4 decode steps; "card_vs_cpu" the SMOKE model on the card and the
+# CPU (8 patches + 2,092 text tokens, so K5 runs on the card), then a
+# SMOKE train step of 2 x 2,304 text tokens.
+SERVE_VLM = dict(
+    arch="paligemma-3b", smoke=False, batch=4, text=2048, steps=32,
+    prefills=4, long_text=7936, parity=dict(text=1844, steps=4),
+    card_vs_cpu=dict(B=2, text=2092, frames=0, steps=4, over={},
+                     train_seq=2304))
+REHEARSAL_VLM = dict(
+    arch="paligemma-3b", smoke=True, batch=2, text=40, steps=4,
+    prefills=2, long_text=0, parity=dict(text=24, steps=4),
+    card_vs_cpu=dict(B=2, text=24, frames=0, steps=4, over={}, train_seq=32))
+# whisper-medium as configured (24 + 24 layers, d_model 1,024, MHA 16 heads
+# of 64, d_ff 4,096, vocab 51,865, learned positions sized to the repo's
+# 32k shapes; stub frames of width 128 drawn from the seed), uncut: ~0.83B
+# parameters. "serve": prefills of 2 requests of 32,768 frames and a
+# 256-token decoder prompt (the encoder runs K5 without a mask at
+# 32,768^2 once a layer; the cross attention, S·T = 8.4M, runs K5 at S !=
+# T once a layer; the decoder's 256^2 self attention stays on the exact
+# path; one untimed warm-up, then the median of three) and 32 decode
+# steps. "parity": decode vs forward on one request (32,768 frames, 260
+# tokens, 4 decode steps); "card_vs_cpu" the SMOKE model with its position
+# tables sized to 2,112 rows on 2,100 frames and 2,050 tokens (K5 in all
+# three attentions on the card), then a SMOKE train step of 2 x 2,304.
+SERVE_WHISPER = dict(
+    arch="whisper-medium", smoke=False, batch=2, frames=32768,
+    text=256, steps=32, prefills=4, parity=dict(text=260, steps=4),
+    card_vs_cpu=dict(B=2, text=2050, frames=2100, steps=4,
+                     over=dict(enc_seq=2112), train_seq=2304))
+REHEARSAL_WHISPER = dict(
+    arch="whisper-medium", smoke=True, batch=2, frames=48, text=24,
+    steps=4, prefills=2, parity=dict(text=24, steps=4),
+    card_vs_cpu=dict(B=2, text=24, frames=40, steps=4, over={},
+                     train_seq=32))
+FAMILY_PARITY_BOUND = ("tests/test_torch_models.py's: float32 logits 1e-4 "
+                       "(decode 1e-3) of the largest, cache entries 2^-7 of "
+                       "their own magnitude + 1e-4 of the largest; bf16 5e-2 "
+                       "of the largest")
+
+
+def _inputs(cfg, B: int, text: int, frames: int, seed: int, dev) -> dict:
+    """A batch drawn from ``seed`` with numpy: tokens [B, text], and the
+    vlm's patches [B, n_patches, frontend_dim] or the enc-dec's frames
+    [B, frames, frontend_dim] (float32; the model casts them)."""
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(0, cfg.vocab, (B, text)).astype(np.int32)}
+    if cfg.family == "vlm":
+        b["patches"] = rng.standard_normal(
+            (B, cfg.n_patches, cfg.frontend_dim), dtype=np.float32)
+    if cfg.family == "encdec":
+        b["frames"] = rng.standard_normal(
+            (B, frames, cfg.frontend_dim), dtype=np.float32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def _text(batch, n: int) -> dict:
+    """``batch`` with its tokens cut to the first ``n``."""
+    return dict(batch, tokens=batch["tokens"][:, :n])
+
+
+def _offset(cfg) -> int:
+    return cfg.n_patches if cfg.family == "vlm" else 0
+
+
+def family_decode_vs_forward(params, cfg, batch, steps: int):
+    """The reference's own check (``tests/test_models.py::test_prefill_
+    decode_matches_forward``) for the vlm and enc-dec families on one
+    request ``batch`` (tokens [1, S] with its patches or frames):
+    ``lm.prefill`` of the first S - steps tokens, then ``steps`` decode
+    steps (vlm positions after the patches), each step's logits against
+    the teacher-forced ``lm.forward``'s, max |diff| < 0.15. Returns
+    (result, failures)."""
+    from repro_torch.models import lm
+    toks = batch["tokens"]
+    S, off = toks.shape[1], _offset(cfg)
+    n = S - steps
+    with torch.inference_mode():
+        logits, _, _ = lm.forward(params, cfg, batch)
+        want = logits[0, off + n - 1:].float()
+        del logits
+        pl, cache = lm.prefill(params, cfg, _text(batch, n),
+                               S_max=off + S + 8)
+        got = [pl[0].float()]
+        for i in range(steps):
+            pos = torch.full((1,), off + n + i, dtype=torch.int32,
+                             device=toks.device)
+            dl, cache = lm.decode_step(params, cfg, toks[:, n + i], pos,
+                                       cache)
+            got.append(dl[0].float())
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    fails = [] if max(errs) < 0.15 else [f"decode vs forward: errors {errs}"]
+    return dict(S=S, steps=steps, max_abs_err=max(errs), errs=errs,
+                bound="max |logits - forward's| < 0.15 "
+                      "(tests/test_models.py)"), fails
+
+
+def _as_kv(cache):
+    """The caches of one family as ``KVCache``s, for :func:`_cache_fails`:
+    the cache itself, or the enc-dec's self cache and its cross rows."""
+    from repro_torch.models.attention import KVCache
+    if isinstance(cache, dict):
+        return [("self", cache["self"]),
+                ("cross", KVCache(cache["cross_k"], cache["cross_v"]))]
+    return [("", cache)]
+
+
+def family_card_vs_cpu(spec, seed: int, dev) -> tuple:
+    """The SMOKE model of ``spec["arch"]`` (``spec["over"]`` applied) from
+    one CPU init, ``spec``'s prefill and decode steps on ``dev`` and on the
+    CPU, in float32 and bf16, logits and caches within
+    :data:`FAMILY_PARITY_BOUND`; then one SMOKE train step on ``dev``
+    against the CPU, :func:`train_parity`. On the CPU alone it runs the CPU
+    side. Returns (result, failures)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.train.tree import tree_map
+    B, n, steps = spec["B"], spec["text"], spec["steps"]
+    res, fails = {}, []
+    arch = spec["arch"]
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = get_config(arch, smoke=True, param_dtype=str(dtype).split(".")[-1],
+                         **spec["over"])
+        off = _offset(cfg)
+        params = lm.init_params(cfg, torch.Generator().manual_seed(seed))
+        cpu_batch = _inputs(cfg, B, n + steps, spec["frames"], seed, "cpu")
+        runs = {}
+        for d in dict.fromkeys([str(dev), "cpu"]):
+            p = tree_map(lambda t: t.to(d, copy=True), params)
+            b = {k: v.to(d) for k, v in cpu_batch.items()}
+            with torch.inference_mode():
+                pl, cache = lm.prefill(p, cfg, _text(b, n),
+                                       S_max=off + n + steps)
+                out = [pl.float().cpu()]
+                for i in range(steps):
+                    pos = torch.full((B,), off + n + i, dtype=torch.int32,
+                                     device=d)
+                    dl, cache = lm.decode_step(p, cfg, b["tokens"][:, n + i],
+                                               pos, cache)
+                    out.append(dl.float().cpu())
+            runs[d] = (out, cache)
+        what = f"{arch} {dtype}"
+        cpu_out, cpu_cache = runs["cpu"]
+        r = {"cpu_logit_max": float(cpu_out[0].abs().max())}
+        if str(dev) != "cpu":
+            got, cache = runs[str(dev)]
+            errs = []
+            for i, (g, w) in enumerate(zip(got, cpu_out)):
+                rel = (5e-2 if dtype == torch.bfloat16 else
+                       1e-4 if i == 0 else 1e-3)
+                errs.append(float((g - w).abs().max()))
+                if not errs[-1] <= rel * float(w.abs().max()):
+                    fails.append(f"{what} {'decode %d' % (i - 1) if i else 'prefill'}"
+                                 f" logits: {errs[-1]}")
+            for (name, gc), (_, wc) in zip(_as_kv(cache), _as_kv(cpu_cache)):
+                fails += _cache_fails(gc, wc, dtype, f"{what} {name}", ())
+            r.update(max_abs_err=errs)
+        res[what] = r
+    step, f = train_parity(seed, dev, arch=arch, seq=spec["train_seq"],
+                           **({"enc_seq": spec["train_seq"]}
+                              if arch == "whisper-medium" else {}))
+    fails += [f"{arch} train step: {x}" for x in f]
+    res[f"{arch} train step"] = step
+    return res, fails
+
+
+def capture_whisper(params, cfg, batch) -> dict:
+    """What K5 gets in layer 0 of one whisper prefill of ``batch``: the
+    encoder's self attention q, k, v (over every frame, no mask) and the
+    decoder's cross attention q (after the causal self attention) and k, v
+    (from the whole encoder's output)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import lm
+    from repro_torch.models.layers import apply_norm
+    e = params["enc"]
+    frames, toks = batch["frames"], batch["tokens"]
+    x = frames.to(cfg.dtype) @ e["proj"] + e["pos"][:frames.shape[1]]
+    pe = lm.layer_params(e["blocks"], 0)
+    enc = A._qkv(pe["attn"], cfg, apply_norm(x, pe["ln1"], cfg.norm,
+                                             cfg.norm_eps), None)
+    del x
+    enc_out = lm.encode(params, cfg, frames)
+    pd = lm.layer_params(params["dec_blocks"], 0)
+    h = params["embed"][toks.long()] + params["dec_pos"][:toks.shape[1]]
+    g = apply_norm(h, pd["ln1"], cfg.norm, cfg.norm_eps)
+    h = h + A.attn_forward(pd["attn"], cfg, g, None, A.CAUSAL)
+    q = A._heads(apply_norm(h, pd["lnx"], cfg.norm, cfg.norm_eps),
+                 pd["cross"]["wq"])
+    k, v = A.cross_kv(pd["cross"], enc_out)
+    return dict(enc=enc, cross=(q, k, v), n_rep=cfg.n_heads // cfg.n_kv_heads)
+
+
+def serve_family(spec, seed: int, dev, runs: int) -> dict:
+    """A vlm or enc-dec model at ``spec``'s width through ``lm.prefill``
+    (``spec["prefills"]`` of ``spec["batch"]`` requests: one untimed
+    warm-up, then the median of the rest) and ``spec["steps"]`` greedy
+    ``lm.decode_step`` calls: K5 launches (:func:`k5_calls` a prefill),
+    finite logits of the right shape; K5 against its plain version on
+    layer 0's real q, k, v (for whisper the encoder's on its first and last
+    1,024 rows, and the cross attention's) and, on the card, timed there
+    beside ``scaled_dot_product_attention`` with the same mask; decode
+    against forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as k5
+    from repro_torch.models import lm
+    from repro_torch.models.attention import FLASH_THRESH, FULL
+    on_card = dev.type == "cuda"
+    cfg = get_config(spec["arch"], smoke=spec["smoke"])
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    B, n, steps, off = spec["batch"], spec["text"], spec["steps"], _offset(cfg)
+    batch = _inputs(cfg, B, n, spec.get("frames", 0), seed, dev)
+    fails = []
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    k5.LAUNCHES = 0                     # counts from this path only
+    with torch.inference_mode():
+        prefill_ms = []                 # the first one warms up, untimed
+        for _ in range(spec["prefills"]):
+            cache = logits = None
+            _sync(dev)
+            t = time.perf_counter()
+            logits, cache = lm.prefill(params, cfg, batch,
+                                       S_max=off + n + steps + 8)
+            _sync(dev)
+            prefill_ms.append((time.perf_counter() - t) * 1e3)
+        pre_launches = k5.LAUNCHES
+        step_ms, finite = [], bool(torch.isfinite(logits).all())
+        for i in range(steps):
+            nxt = torch.argmax(logits.float(), -1).to(torch.int32)
+            pos = torch.full((B,), off + n + i, dtype=torch.int32, device=dev)
+            _sync(dev)
+            t = time.perf_counter()
+            logits, cache = lm.decode_step(params, cfg, nxt, pos, cache)
+            _sync(dev)
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            finite &= bool(torch.isfinite(logits).all())
+    launches = k5.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    S = off + n
+    T = spec.get("frames", S)
+    per = (cfg.n_layers * (S * S > FLASH_THRESH) if cfg.family == "vlm" else
+           cfg.n_enc_layers * (T * T > FLASH_THRESH)
+           + cfg.n_layers * (S * S > FLASH_THRESH)
+           + cfg.n_layers * (S * T > FLASH_THRESH))
+    want = spec["prefills"] * per
+    if on_card and (pre_launches, launches) != (want, want):
+        fails.append(f"K5 launches {pre_launches} in the prefills, {launches}"
+                     f" in all; expected {want} ({per} a prefill)")
+    if not finite or logits.shape != (B, cfg.vocab):
+        fails.append(f"logits {tuple(logits.shape)}, finite {finite}")
+    del cache, logits
+    _free(dev)
+    real, timing = {}, {}
+    with torch.inference_mode():
+        if cfg.family == "vlm":
+            cap = capture_layers(params, cfg, batch["tokens"], (0,),
+                                 patches=batch["patches"])[0]
+            qkv = (cap["q"], cap["k"], cap["v"])
+            real["layer0"] = k5_vs_plain(*qkv, cap["mask"], cap["n_rep"],
+                                         cap["scale"])
+            if on_card:
+                timing["served"] = k5_timing(*qkv, cap["n_rep"], runs,
+                                             mask=cap["mask"],
+                                             metric="k5_vlm_ms")
+            del cap, qkv
+            if on_card and spec["long_text"]:
+                lb = _inputs(cfg, 1, spec["long_text"], 0, seed + 1, dev)
+                cap = capture_layers(params, cfg, lb["tokens"], (0,),
+                                     patches=lb["patches"])[0]
+                timing["long"] = k5_timing(cap["q"], cap["k"], cap["v"],
+                                           cap["n_rep"], runs,
+                                           mask=cap["mask"],
+                                           metric="k5_vlm_long_ms")
+                del cap, lb
+        else:
+            cap = capture_whisper(params, cfg, batch)
+            q, k, v = cap["enc"]
+            got = k5.flash_sdpa(q, k, v, FULL, cap["n_rep"], cfg.hd ** -0.5)
+            real["encoder_layer0"] = k5_check_rows(
+                got, q, k, v, FULL, cap["n_rep"], cfg.hd ** -0.5)
+            del got
+            real["cross_layer0"] = k5_vs_plain(*cap["cross"], FULL,
+                                               cap["n_rep"], cfg.hd ** -0.5)
+            if on_card:
+                timing["encoder"] = k5_timing(q, k, v, cap["n_rep"], runs,
+                                              mask=FULL, plain_runs=3,
+                                              metric="k5_whisper_encoder_ms")
+                timing["cross"] = k5_timing(*cap["cross"], cap["n_rep"], runs,
+                                            mask=FULL,
+                                            metric="k5_whisper_cross_ms")
+            del cap, q, k, v
+    k5.LAUNCHES = launches              # the checks' launches do not count
+    for name, r in real.items():
+        if not r["max_err_over_tol"] <= 1.0:
+            fails.append(f"K5 {name}: {r}")
+    _free(dev)
+    pb = _inputs(cfg, 1, spec["parity"]["text"], spec.get("frames", 0),
+                 seed + 2, dev)
+    dvf, f = family_decode_vs_forward(params, cfg, pb, spec["parity"]["steps"])
+    fails += f
+    return {"arch": cfg.name, "layers": cfg.n_layers,
+            "enc_layers": cfg.n_enc_layers,
+            "params": sum(t.numel() for t in _leaves(params)),
+            "init_s": init_s, "batch": B, "prompt_len": S,
+            "frames": spec.get("frames"),
+            "prefill_ms": statistics.median(prefill_ms[1:]),
+            "prefill_ms_all": prefill_ms,
+            "prefill_ms_per_request": statistics.median(prefill_ms[1:]) / B,
+            "decode_step_ms": statistics.median(step_ms),
+            "decode_step_ms_all": step_ms,
+            "new_tokens_per_s": B * steps / (sum(step_ms) / 1e3),
+            "k5_launches": launches, "expected_k5_launches": want,
+            "peak_bytes": peak, "k5_real": real, "k5_tolerance": K5_BOUND,
+            "k5_timing": timing, "decode_vs_forward": dvf, "fails": fails}
+
+
+def _serve_family(phase, seed, dev, runs, spec):
+    t_phase = time.perf_counter()
+    part = serve_family(spec, seed, dev, runs)
+    _free(dev)
+    parity, f = family_card_vs_cpu(dict(spec["card_vs_cpu"],
+                                        arch=spec["arch"]), seed, dev)
+    fails = part["fails"] + [f"card vs CPU: {x}" for x in f]
+    out = {"phase": phase, **part, "card_vs_cpu": parity,
+           "card_vs_cpu_tolerance": FAMILY_PARITY_BOUND,
+           "train_step_tolerance": TRAIN_STEP_BOUND,
+           "phase_s": time.perf_counter() - t_phase, "fails": fails}
+    emit(out)
+    emit({"metric": f"{phase}_prefill_ms_per_request",
+          "value": part["prefill_ms_per_request"],
+          "clock": "host, synchronized"})
+    emit({"metric": f"{phase}_decode_step_ms", "value": part["decode_step_ms"],
+          "clock": "host, synchronized"})
+    emit({"metric": f"{phase}_new_tokens_per_s",
+          "value": part["new_tokens_per_s"]})
+    emit({"metric": f"{phase}_peak_device_bytes", "value": part["peak_bytes"]})
+    print(f"{phase}: {out['phase_s']:.1f} s", flush=True)
+    if fails:
+        raise AssertionError(f"{phase}: " + "; ".join(fails))
+    return out
+
+
+def run_serve_vlm(*, seed, runs=25):
+    """The ``serve-vlm`` phase on the card (:data:`SERVE_VLM`): paligemma-3b
+    served at full width (:func:`serve_family`), then the SMOKE model on
+    the card against the CPU and a SMOKE train step
+    (:func:`family_card_vs_cpu`). Returns the phase line."""
+    return _serve_family("serve-vlm", seed, torch.device("cuda"), runs,
+                         SERVE_VLM)
+
+
+def rehearse_serve_vlm(seed=0):
+    """The ``serve-vlm`` phase's checks on the CPU at SMOKE size
+    (:data:`REHEARSAL_VLM`; no kernel runs). Returns the phase line."""
+    return _serve_family("serve-vlm", seed, torch.device("cpu"), 0,
+                         REHEARSAL_VLM)
+
+
+def run_serve_whisper(*, seed, runs=25):
+    """The ``serve-whisper`` phase on the card (:data:`SERVE_WHISPER`):
+    whisper-medium served at full width (:func:`serve_family`), then the
+    SMOKE model on the card against the CPU and a SMOKE train step. Returns
+    the phase line."""
+    return _serve_family("serve-whisper", seed, torch.device("cuda"), runs,
+                         SERVE_WHISPER)
+
+
+def rehearse_serve_whisper(seed=0):
+    """The ``serve-whisper`` phase's checks on the CPU at SMOKE size
+    (:data:`REHEARSAL_WHISPER`; no kernel runs). Returns the phase line."""
+    return _serve_family("serve-whisper", seed, torch.device("cpu"), 0,
+                         REHEARSAL_WHISPER)
+
+
 # -------------------------------------------------------------------- main
 
 def _smi() -> str:
@@ -3650,6 +4177,14 @@ def main(argv=None) -> int:
     m_out = run_serve_moe(seed=args.seed, runs=args.runs)
     k5_checks += [m_out["llama4"]["k5_layer0"], m_out["deepseek"]["k5_layer0"]]
     mla = m_out["deepseek"]["k5_mla_timing"]
+    torch.cuda.empty_cache()
+    v_out = run_serve_vlm(seed=args.seed, runs=args.runs)
+    w_out = run_serve_whisper(seed=args.seed, runs=args.runs)
+    k5_checks += [*v_out["k5_real"].values(), *w_out["k5_real"].values()]
+    k5_rows = {"vlm_256_256": v_out["k5_timing"]["served"],
+               "vlm_256_256_8k": v_out["k5_timing"]["long"],
+               "whisper_encoder_64_64": w_out["k5_timing"]["encoder"],
+               "whisper_cross_64_64": w_out["k5_timing"]["cross"]}
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "fused_descent", "route": "cuda",
@@ -3697,13 +4232,16 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
         "launches": s_out["launches"]["k5"] + t_out["k5_launches"]
-        + m_out["llama4"]["launches"]["k5"] + m_out["deepseek"]["k5_launches"],
+        + m_out["llama4"]["launches"]["k5"] + m_out["deepseek"]["k5_launches"]
+        + v_out["k5_launches"] + w_out["k5_launches"],
         "launches_by_path": {
             "serve": s_out["launches"]["k5"], "train": t_out["k5_launches"],
             "serve-moe llama4": m_out["llama4"]["launches"]["k5"],
-            "serve-moe deepseek": m_out["deepseek"]["k5_launches"]},
-        "builds": "bf16 (q/k, v) head dims padded to (64, 64), (128, 128) "
-                  "or (192, 128); float32 q/k up to 192, v up to 128",
+            "serve-moe deepseek": m_out["deepseek"]["k5_launches"],
+            "serve-vlm": v_out["k5_launches"],
+            "serve-whisper": w_out["k5_launches"]},
+        "builds": "bf16 (q/k, v) head dims padded to (64, 64), (128, 128), "
+                  "(192, 128) or (256, 256); float32 q/k and v up to 256",
         "max_abs_err": max(r["max_abs_err"] for r in k5_checks),
         "max_err_over_tol": max(r["max_err_over_tol"] for r in k5_checks),
         "tolerance": K5_BOUND,
@@ -3716,13 +4254,14 @@ def main(argv=None) -> int:
         "ms": k5t["ms"], "plain_ms": k5t["plain_ms"],
         "bound_ms": k5t["bound_ms"], "bound_by": k5t["bound_by"],
         "library_ms": k5t["library_ms"],
-        "library": "torch.nn.functional.scaled_dot_product_attention "
-                   "(kv repeated, is_causal=True)",
+        "library": "torch.nn.functional.scaled_dot_product_attention ("
+                   + k5t["library"] + ")",
         "per": "one prefill layer: " + ", ".join(
             f"{k}={v}" for k, v in k5t["shape"].items()),
-        "mla_192_128": {k: mla[k] for k in (
+        **{name: {k: row[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "bound_share", "shape")}}]})
+            "library_backend", "bound_share", "shape")}
+           for name, row in {"mla_192_128": mla, **k5_rows}.items()}}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

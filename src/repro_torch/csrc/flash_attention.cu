@@ -28,14 +28,15 @@
 // head, heaviest causal items first. A block is three warpgroups.
 // - The producer warpgroup gives up its registers (setmaxnreg) and one of
 //   its threads issues TMA loads: q into one of two buffers (one at q/k
-//   head dim 192, below), then each live
-//   128-key tile of k and of v into a ring of two stages, with a full and
+//   head dims above 128, below), then each live
+//   128-key tile of k and of v (64 at (256, 256)) into a ring of two stages, with a full and
 //   an empty mbarrier for each buffer. The tensor maps are 4-D over the
 //   caller's tensors, (dim, row, head, batch) with the caller's strides,
 //   the kv head coordinate h / n_rep; boxes are 64 columns (128 bytes,
-//   128-byte swizzle) by 128 rows, and TMA fills rows past S or T and
-//   columns past the head dim with zeros, which pads head dims below 64,
-//   128 or 192 inside shared memory.
+//   128-byte swizzle) by 128 rows (a k or v box of the (256, 256) build 64
+//   rows), and TMA fills rows past S or T and columns past the head dim
+//   with zeros, which pads head dims below 64, 128, 192 or 256 inside
+//   shared memory.
 // - Each consumer warpgroup (setmaxnreg 240) owns 64 of the item's rows.
 //   s = q kᵀ is wgmma m64n128k16 with q and k K-major in shared memory;
 //   the mask and the online softmax run on the float32 accumulator in
@@ -52,15 +53,23 @@
 //   whole for a warp's 16 rows skip the per-score test, and the others
 //   test each key against the row's bounds, computed once a tile.
 // The body is built for q/k and v head dims padded to (DQK, DV) = (64, 64),
-// (128, 128) or (192, 128); the last is MLA's (DeepSeek-V3: q/k 128 + 64
-// rotary, v 128). At (192, 128) two q buffers and two stages of k and v
-// would need 263,264 bytes of shared memory, above the 232,448 a block may
-// have, so that build keeps one q buffer (214,112 bytes): the next item's
-// q loads once every warp is done with the last q kᵀ of the item before,
-// while its last p·v runs. The accumulators are those of (128, 128): s and
-// o 64 x 128 float32 a consumer warpgroup; q kᵀ takes 12 k16 steps, not 8.
+// (128, 128), (192, 128) or (256, 256); (192, 128) is MLA's (DeepSeek-V3:
+// q/k 128 + 64 rotary, v 128), (256, 256) PaliGemma's. At (192, 128) two q
+// buffers and two stages of k and v would need 263,264 bytes of shared
+// memory, above the 232,448 a block may have, so that build keeps one q
+// buffer (214,112 bytes): the next item's q loads once every warp is done
+// with the last q kᵀ of the item before, while its last p·v runs. The
+// accumulators are those of (128, 128): s and o 64 x 128 float32 a consumer
+// warpgroup; q kᵀ takes 12 k16 steps, not 8. At (256, 256) a 128-key k and
+// v tile is 128 KB, and beside a 64 KB q tile two stages of them would need
+// 320 KB; o is 64 x 256 float32 a consumer warpgroup, 128 registers a
+// thread. That build takes tiles of 64 keys (BK, a template parameter of
+// the body): one q buffer and two stages of 32 KB k and 32 KB v tiles,
+// 197,728 bytes; s is 64 x 64 (32 registers a thread, q kᵀ as 16 steps of
+// m64n64k16) and o += p v one m64n256k16 a 16-key step, 4 a tile.
 // In float32 (the reference's tests) 256 threads run scalar FMAs from shared
-// memory, 64 query rows a block, q/k head dims up to 192 and v up to 128.
+// memory, 64 query rows a block, q/k and v head dims up to 256 (215,296
+// bytes of shared memory at 256).
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,8 +83,8 @@ namespace fa {
 
 constexpr int kBQ = 64;        // float32: query rows a block
 constexpr int kBK = 64;        // float32: keys a tile
-constexpr int kDQkMax = 192;   // largest q/k head dim the kernel takes
-constexpr int kDVMax = 128;    // largest v head dim the kernel takes
+constexpr int kDQkMax = 256;   // largest q/k head dim the kernel takes
+constexpr int kDVMax = 256;    // largest v head dim the kernel takes
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -128,20 +137,20 @@ __device__ __forceinline__ int next_live(const Args& a, int q0, int q_last,
 // ================================================================== bf16
 
 constexpr int kWBQ = 128;      // query rows a block: 64 a consumer warpgroup
-constexpr int kWBK = 128;      // keys a tile
+constexpr int kWBK = 128;      // keys a tile (64 in the (256, 256) build)
 constexpr int kStages = 2;     // k/v tiles in the ring
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int kBox = 64;       // bf16 columns of one 128-byte swizzled row
 constexpr long long kHangCycles = 1ll << 33;  // ~4 s: a lost phase traps
 
 // q/k head dims padded (with zeros, by TMA) to DQK and v's to DV, (DQK, DV)
-// in {(64, 64), (128, 128), (192, 128)}
-template <int DQK, int DV>
+// in {(64, 64), (128, 128), (192, 128), (256, 256)}; BK keys a k/v tile
+template <int DQK, int DV, int BK>
 struct Smem {
   static constexpr int kQBufs = DQK > 128 ? 1 : 2;  // q buffers
   static constexpr int kQ = kWBQ * DQK * 2;  // q tile: DQK / 64 boxes of 128 rows
-  static constexpr int kK = kWBK * DQK * 2;  // one k tile
-  static constexpr int kV = kWBK * DV * 2;   // one v tile
+  static constexpr int kK = BK * DQK * 2;    // one k tile
+  static constexpr int kV = BK * DV * 2;     // one v tile
   // 1024 bytes of slack to align the tiles (the 128-byte swizzle repeats
   // every 1024 bytes), q, the k ring, the v ring, then the mbarriers
   static constexpr int kBytes =
@@ -305,15 +314,65 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
+// d (64 x 64, float32) = a · bᵀ (+ d when acc): a 64 x 16 and b 64 x 16
+// bf16, both K-major in shared memory (the (256, 256) build's q kᵀ)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FBT_F8(0), FBT_F8(8), FBT_F8(16), FBT_F8(24)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (64 x 256) += a · b: a 64 x 16 bf16 from registers, b 16 x 256 bf16
+// MN-major in shared memory (the (256, 256) build's p·v)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, "
+      "p, 1, 1, 1;\n}\n"
+      : FBT_F8(0), FBT_F8(8), FBT_F8(16), FBT_F8(24), FBT_F8(32), FBT_F8(40),
+        FBT_F8(48), FBT_F8(56), FBT_F8(64), FBT_F8(72), FBT_F8(80),
+        FBT_F8(88), FBT_F8(96), FBT_F8(104), FBT_F8(112), FBT_F8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
 #undef FBT_F8
 
 template <int DV>
 __device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2], const uint32_t* p,
                                          uint64_t b) {
-  if constexpr (DV == 128)
+  if constexpr (DV == 256)
+    wgmma_rs_n256(o, p, b);
+  else if constexpr (DV == 128)
     wgmma_rs_n128(o, p, b);
   else
     wgmma_rs_n64(o, p, b);
+}
+
+// s = a · bᵀ over a tile of BK keys (s 64 x BK float32)
+template <int BK>
+__device__ __forceinline__ void wgmma_qk(float (&s)[BK / 2], uint64_t a,
+                                         uint64_t b, int acc) {
+  if constexpr (BK == 128)
+    wgmma_ss_n128(s, a, b, acc);
+  else
+    wgmma_ss_n64(s, a, b, acc);
 }
 
 // 2^x, one MUFU op (ex2.approx, relative error ~2^-22; ftz: results below
@@ -337,27 +396,28 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // o += p v over one k/v stage: 16 keys a step, p's pairs of keys
-// 16kk + [0, 16) the A fragment of step kk, v read transposed
-template <int DV>
+// 16kk + [0, 16) the A fragment of step kk, v read transposed (its 64-column
+// boxes BK·128 bytes apart)
+template <int DV, int BK>
 __device__ __forceinline__ void issue_pv(float (&o)[DV / 2],
-                                         const uint32_t (&p)[kWBK / 4],
+                                         const uint32_t (&p)[BK / 4],
                                          uint32_t vb) {
 #pragma unroll
-  for (int kk = 0; kk < kWBK / 16; ++kk)
-    wgmma_pv<DV>(o, p + 4 * kk, sw128(vb + kk * 16 * 128, kWBK * 128, 1024));
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_pv<DV>(o, p + 4 * kk, sw128(vb + kk * 16 * 128, BK * 128, 1024));
   wg_commit();
 }
 
-// s = q kᵀ for one k stage: 64 rows x 128 keys, DQK / 16 steps of k16, q
+// s = q kᵀ for one k stage: 64 rows x BK keys, DQK / 16 steps of k16, q
 // and k K-major
-template <int DQK>
-__device__ __forceinline__ void issue_qk(float (&s)[kWBK / 2], uint32_t qa,
+template <int DQK, int BK>
+__device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t qa,
                                          uint32_t kb) {
 #pragma unroll
   for (int kk = 0; kk < DQK / 16; ++kk)
-    wgmma_ss_n128(
+    wgmma_qk<BK>(
         s, sw128(qa + (kk >> 2) * kWBQ * 128 + (kk & 3) * 32, 16, 1024),
-        sw128(kb + (kk >> 2) * kWBK * 128 + (kk & 3) * 32, 16, 1024), kk > 0);
+        sw128(kb + (kk >> 2) * BK * 128 + (kk & 3) * 32, 16, 1024), kk > 0);
   wg_commit();
 }
 
@@ -372,12 +432,13 @@ __device__ __forceinline__ void issue_qk(float (&s)[kWBK / 2], uint32_t qa,
 // registers). For scale > 0 the row max is taken on the raw scores and
 // scaled once, and each p is one FFMA and one exp2; a negative scale scales
 // every score first. Leaves p in s and the factor the accumulator must be
-// scaled by in corr.
-__device__ __forceinline__ void softmax_tile(const Args& a, float (&s)[kWBK / 2],
+// scaled by in corr. BK keys a tile.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(const Args& a, float (&s)[BK / 2],
                                              float (&m_r)[2], float (&l_r)[2],
                                              float (&corr)[2], int k0, int rq0,
                                              int qr, int t4, float scale2) {
-  const int k_last = k0 + kWBK - 1;
+  const int k_last = k0 + BK - 1;
   const bool whole =
       k_last < a.kv_len &&
       (!a.causal || k_last < a.prefix_len ||
@@ -388,11 +449,11 @@ __device__ __forceinline__ void softmax_tile(const Args& a, float (&s)[kWBK / 2]
   float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
   if (whole && raw) {
 #pragma unroll
-    for (int j = 0; j < kWBK / 2; ++j)
+    for (int j = 0; j < BK / 2; ++j)
       mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
   } else if (whole) {
 #pragma unroll
-    for (int j = 0; j < kWBK / 2; ++j) {
+    for (int j = 0; j < BK / 2; ++j) {
       s[j] *= scale2;
       mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
     }
@@ -407,7 +468,7 @@ __device__ __forceinline__ void softmax_tile(const Args& a, float (&s)[kWBK / 2]
     }
     const int pre_len = a.causal ? min(a.prefix_len, a.kv_len) : 0;
 #pragma unroll
-    for (int j = 0; j < kWBK / 8; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kj = k0 + j * 8 + 2 * t4 + (e & 1), r = e >> 1;
@@ -427,7 +488,7 @@ __device__ __forceinline__ void softmax_tile(const Args& a, float (&s)[kWBK / 2]
     m_r[r] = m_new;
   }
 #pragma unroll
-  for (int j = 0; j < kWBK / 2; ++j) {
+  for (int j = 0; j < BK / 2; ++j) {
     s[j] = ex2(fmaf(s[j], post, -m_r[(j >> 1) & 1]));
     sum[(j >> 1) & 1] += s[j];
   }
@@ -451,9 +512,11 @@ __device__ __forceinline__ int item_of(int r) {
 }
 
 // The (batch·head, q tile) of item `it`. The (64, 64) and (128, 128) builds
-// take the items heaviest causal first, as above. The (192, 128) build,
-// MLA's, takes them head by head (item i is q tile n_qt - 1 - i % n_qt of
-// head i / n_qt): MLA has a kv head for every query head, 128 of ~2 MB at
+// take the items heaviest causal first, as above, in a causal launch. The
+// (192, 128) and (256, 256) builds, and a launch without the causal mask
+// over more than one round of items whose k and v pass the L2
+// (launch_build), take them head by head
+// (item i is q tile n_qt - 1 - i % n_qt of head i / n_qt): MLA has a kv head for every query head, 128 of ~2 MB at
 // 3,072 tokens, far past the 50 MB L2, so the items that read one head's k
 // and v must run together for the L2 to serve them. Heaviest first runs
 // every head's tile of one row each round, and every item then reads its k
@@ -472,12 +535,12 @@ __device__ __forceinline__ void item_coords(int it, int BH, int n_qt, int& bh,
   }
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, int BK, bool HEAD_MAJOR>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, const Args a) {
-  using L = Smem<DQK, DV>;
+  using L = Smem<DQK, DV, BK>;
   extern __shared__ unsigned char smem[];
   const uint32_t sq = (smem_u32(smem) + 1023u) & ~1023u;  // the q buffers
   const uint32_t sk = sq + L::kQBufs * L::kQ, sv = sk + kStages * L::kK;
@@ -485,7 +548,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 
   const int BH = a.B * a.H, n_qt = (a.S + kWBQ - 1) / kWBQ;
   const int n_items = n_qt * BH;
-  const int n_kt = (a.kv_len + kWBK - 1) / kWBK;  // kv_len <= T
+  const int n_kt = (a.kv_len + BK - 1) / BK;  // kv_len <= T
   const int wg = threadIdx.x / 128;  // 0: producer, 1 and 2: consumers
 
   if (threadIdx.x == 0) {
@@ -509,7 +572,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       int stage = 0, phase = 0;
       for (int r = 0, it = item_of(0); it < n_items; it = item_of(++r)) {
         int bh, qt;
-        item_coords<(DQK > 128)>(it, BH, n_qt, bh, qt);
+        item_coords<HEAD_MAJOR>(it, BH, n_qt, bh, qt);
         const int b = bh / a.H, h = bh - b * a.H, kh = h / a.n_rep;
         const int q0 = qt * kWBQ, q_last = min(q0 + kWBQ, a.S) - 1;
         const int qb = L::qbuf(r);  // the q buffer of this item
@@ -518,18 +581,18 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         for (int c = 0; c < DQK / kBox; ++c)
           tma_load(sq + qb * L::kQ + c * kWBQ * 128, &tq, bar.q_full(qb),
                    c * kBox, q0, h, b);
-        for (int kt = next_live(a, q0, q_last, 0, n_kt, kWBK); kt < n_kt;
-             kt = next_live(a, q0, q_last, kt + 1, n_kt, kWBK)) {
+        for (int kt = next_live(a, q0, q_last, 0, n_kt, BK); kt < n_kt;
+             kt = next_live(a, q0, q_last, kt + 1, n_kt, BK)) {
           mbar_wait(bar.k_empty(stage), phase ^ 1);  // the first lap passes
           mbar_expect_tx(bar.k_full(stage), L::kK);
           for (int c = 0; c < DQK / kBox; ++c)
-            tma_load(sk + stage * L::kK + c * kWBK * 128, &tk,
-                     bar.k_full(stage), c * kBox, kt * kWBK, kh, b);
+            tma_load(sk + stage * L::kK + c * BK * 128, &tk,
+                     bar.k_full(stage), c * kBox, kt * BK, kh, b);
           mbar_wait(bar.v_empty(stage), phase ^ 1);
           mbar_expect_tx(bar.v_full(stage), L::kV);
           for (int c = 0; c < DV / kBox; ++c)
-            tma_load(sv + stage * L::kV + c * kWBK * 128, &tv, bar.v_full(stage),
-                     c * kBox, kt * kWBK, kh, b);
+            tma_load(sv + stage * L::kV + c * BK * 128, &tv, bar.v_full(stage),
+                     c * kBox, kt * BK, kh, b);
           if (++stage == kStages) stage = 0, phase ^= 1;
         }
       }
@@ -556,15 +619,15 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(b);
   };
   float o[DV / 2];  // m64nDV accumulator: (row, 8j + 2 t4 + c) at o[4j + 2r + c]
-  float s[kWBK / 2], corr[2];
-  uint32_t p[kWBK / 4];  // p of the previous tile in bf16 pairs: the A
+  float s[BK / 2], corr[2];
+  uint32_t p[BK / 4];  // p of the previous tile in bf16 pairs: the A
                          // fragments of its p·v (key pairs 16kk + [0, 16))
 
   if (cw == 1) named_arrive(1);  // the first warpgroup issues first
   int stage = 0, phase = 0;
   for (int r = 0, it = item_of(0); it < n_items; it = item_of(++r)) {
     int bh, qt;
-    item_coords<(DQK > 128)>(it, BH, n_qt, bh, qt);
+    item_coords<HEAD_MAJOR>(it, BH, n_qt, bh, qt);
     const int b = bh / a.H, h = bh - b * a.H;
     const int q0 = qt * kWBQ, q_last = min(q0 + kWBQ, a.S) - 1;
     const int rq0 = q0 + 64 * cw + 16 * warp;  // this warp's first row
@@ -577,60 +640,60 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.f, 0.f};  // rows qr and qr + 8
 
     mbar_wait(bar.q_full(qb), L::qlap(r));
-    int kt = next_live(a, q0, q_last, 0, n_kt, kWBK);
+    int kt = next_live(a, q0, q_last, 0, n_kt, BK);
     if (kt < n_kt) {
       mbar_wait(bar.k_full(stage), phase);
       named_sync(1 + cw);
       wg_fence();
-      issue_qk<DQK>(s, qa, sk + stage * L::kK);
+      issue_qk<DQK, BK>(s, qa, sk + stage * L::kK);
       named_arrive(1 + (cw ^ 1));
       wg_wait<0>();
 #pragma unroll
-      for (int j = 0; j < kWBK / 2; ++j) pin(s[j]);
+      for (int j = 0; j < BK / 2; ++j) pin(s[j]);
       arrive(bar.k_empty(stage));
-      softmax_tile(a, s, m_r, l_r, corr, kt * kWBK, rq0, qr, t4, scale2);
+      softmax_tile<BK>(a, s, m_r, l_r, corr, kt * BK, rq0, qr, t4, scale2);
 #pragma unroll
-      for (int j = 0; j < kWBK / 4; ++j)
+      for (int j = 0; j < BK / 4; ++j)
         p[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
-      for (kt = next_live(a, q0, q_last, kt + 1, n_kt, kWBK); kt < n_kt;
-           kt = next_live(a, q0, q_last, kt + 1, n_kt, kWBK)) {
+      for (kt = next_live(a, q0, q_last, kt + 1, n_kt, BK); kt < n_kt;
+           kt = next_live(a, q0, q_last, kt + 1, n_kt, BK)) {
         const int prev = stage, prev_phase = phase;
         if (++stage == kStages) stage = 0, phase ^= 1;
         mbar_wait(bar.v_full(prev), prev_phase);
         mbar_wait(bar.k_full(stage), phase);
         named_sync(1 + cw);
         wg_fence();
-        issue_qk<DQK>(s, qa, sk + stage * L::kK);
-        issue_pv<DV>(o, p, sv + prev * L::kV);
+        issue_qk<DQK, BK>(s, qa, sk + stage * L::kK);
+        issue_pv<DV, BK>(o, p, sv + prev * L::kV);
         named_arrive(1 + (cw ^ 1));
         wg_wait<1>();  // s is in; the p·v may still run
 #pragma unroll
-        for (int j = 0; j < kWBK / 2; ++j) pin(s[j]);
+        for (int j = 0; j < BK / 2; ++j) pin(s[j]);
         arrive(bar.k_empty(stage));
-        softmax_tile(a, s, m_r, l_r, corr, kt * kWBK, rq0, qr, t4, scale2);
+        softmax_tile<BK>(a, s, m_r, l_r, corr, kt * BK, rq0, qr, t4, scale2);
         wg_wait<0>();  // the p·v is done: o and p are free
 #pragma unroll
         for (int j = 0; j < DV / 2; ++j) pin(o[j]);
 #pragma unroll
-        for (int j = 0; j < kWBK / 4; ++j) pin(p[j]);
+        for (int j = 0; j < BK / 4; ++j) pin(p[j]);
         arrive(bar.v_empty(prev));
 #pragma unroll
         for (int j = 0; j < DV / 2; ++j) o[j] *= corr[(j >> 1) & 1];
 #pragma unroll
-        for (int j = 0; j < kWBK / 4; ++j)
+        for (int j = 0; j < BK / 4; ++j)
           p[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
       }
       arrive(bar.q_empty(qb));  // every q kᵀ of the item is done
       mbar_wait(bar.v_full(stage), phase);  // the last tile's p·v
       named_sync(1 + cw);
       wg_fence();
-      issue_pv<DV>(o, p, sv + stage * L::kV);
+      issue_pv<DV, BK>(o, p, sv + stage * L::kV);
       named_arrive(1 + (cw ^ 1));
       wg_wait<0>();
 #pragma unroll
       for (int j = 0; j < DV / 2; ++j) pin(o[j]);
 #pragma unroll
-      for (int j = 0; j < kWBK / 4; ++j) pin(p[j]);
+      for (int j = 0; j < BK / 4; ++j) pin(p[j]);
       arrive(bar.v_empty(stage));
       if (++stage == kStages) stage = 0, phase ^= 1;
     } else {
@@ -897,18 +960,18 @@ inline bool make_map(CUtensorMap* map, const void* base, int cols, int rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, int BK, bool HEAD_MAJOR>
 cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   const int Hk = a.H / a.n_rep;
   if (!make_map(&tq, a.q, a.hd, a.S, a.H, a.B, a.q_ss, a.q_sh, a.q_sb, kWBQ) ||
-      !make_map(&tk, a.k, a.hd, a.T, Hk, a.B, a.k_st, a.k_sh, a.k_sb, kWBK) ||
-      !make_map(&tv, a.v, a.hv, a.T, Hk, a.B, a.v_st, a.v_sh, a.v_sb, kWBK))
+      !make_map(&tk, a.k, a.hd, a.T, Hk, a.B, a.k_st, a.k_sh, a.k_sb, BK) ||
+      !make_map(&tv, a.v, a.hv, a.T, Hk, a.B, a.v_st, a.v_sh, a.v_sb, BK))
     return cudaErrorInvalidValue;
-  constexpr int smem = Smem<DQK, DV>::kBytes;
+  constexpr int smem = Smem<DQK, DV, BK>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wgmma<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_wgmma<DQK, DV, BK, HEAD_MAJOR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
@@ -916,9 +979,45 @@ cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
           cudaSuccess)
     return e;
   const int items = a.B * a.H * ((a.S + kWBQ - 1) / kWBQ);
-  flash_fwd_wgmma<DQK, DV>
+  flash_fwd_wgmma<DQK, DV, BK, HEAD_MAJOR>
       <<<items < sms ? items : sms, kThreads, smem, stream>>>(tq, tk, tv, a);
   return cudaGetLastError();
+}
+
+// The item order of a launch (item_coords): head by head for q/k head dims
+// above 128, and for a launch without the causal mask whose items take
+// more than one round of the grid and whose heads' k and v together pass
+// the L2: there all items weigh the same, and the order only decides what
+// the L2 holds in a round (whisper's encoder, 32,768 frames: one kv head's
+// k and v are 8 MB, 32 of them 256 MB, past the 50 MB L2; on an H100
+// head by head took 19.8-20.4 ms a call where heaviest first took
+// 22.0-22.7).
+// Heaviest causal item first otherwise: with every item in one round
+// (whisper's cross attention, 64 items) the order only places the items
+// on the SMs, and head by head took 0.34-0.35 ms where the other order
+// took 0.33; with every head's k and v in the L2 (yi-9b's 4 kv heads at
+// 3,072 tokens, 6 MB, without a mask) head by head took 0.265 ms where
+// the other order took 0.262.
+template <int DQK, int DV, int BK>
+cudaError_t launch_build(const Args& a, cudaStream_t stream) {
+  if constexpr (DQK > 128) {
+    return launch_wgmma<DQK, DV, BK, true>(a, stream);
+  } else {
+    int dev = 0, sms = 0, l2 = 0;
+    cudaError_t e;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev)) !=
+            cudaSuccess)
+      return e;
+    const long long items = 1ll * a.B * a.H * ((a.S + kWBQ - 1) / kWBQ);
+    const long long kv_bytes =
+        2ll * a.B * (a.H / a.n_rep) * a.kv_len * (a.hd + a.hv);
+    return a.causal || items <= sms || kv_bytes <= l2
+               ? launch_wgmma<DQK, DV, BK, false>(a, stream)
+               : launch_wgmma<DQK, DV, BK, true>(a, stream);
+  }
 }
 
 inline cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
@@ -936,19 +1035,26 @@ inline cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
 }  // namespace fbt
 
 // The bf16 build for q/k head dim hd and v head dim hv: the narrowest of
-// (64, 64), (128, 128) and (192, 128) that holds both (hd <= 192, hv <= 128).
+// (64, 64), (128, 128), (192, 128) and (256, 256) that holds both (hd <=
+// 256, hv <= 256), with its keys a tile: 64 for (256, 256), 128 otherwise.
 template <typename F>
 inline auto with_build(int hd, int hv, F&& f) {
-  if (hd > 128) return f(std::integral_constant<int, 192>{},
-                         std::integral_constant<int, 128>{});
-  if (hd > 64 || hv > 64) return f(std::integral_constant<int, 128>{},
-                                   std::integral_constant<int, 128>{});
-  return f(std::integral_constant<int, 64>{}, std::integral_constant<int, 64>{});
+  using std::integral_constant;
+  if (hd > 192 || hv > 128)
+    return f(integral_constant<int, 256>{}, integral_constant<int, 256>{},
+             integral_constant<int, 64>{});
+  if (hd > 128) return f(integral_constant<int, 192>{},
+                         integral_constant<int, 128>{},
+                         integral_constant<int, fbt::fa::kWBK>{});
+  if (hd > 64 || hv > 64) return f(integral_constant<int, 128>{},
+                                   integral_constant<int, 128>{},
+                                   integral_constant<int, fbt::fa::kWBK>{});
+  return f(integral_constant<int, 64>{}, integral_constant<int, 64>{},
+           integral_constant<int, fbt::fa::kWBK>{});
 }
 
 // Plain C entry, bound with ctypes. dtype 0 = float32, 1 = bfloat16. The
-// caller checks shapes (S, T >= 1, B*H <= 65535, q/k head dim <= 192 and v
-// head dim <= 128,
+// caller checks shapes (S, T >= 1, B*H <= 65535, q/k and v head dims <= 256,
 // kv_len <= T; for bf16 head dims a multiple of 8, bases 16-byte aligned and
 // strides a multiple of 8 elements), allocates the output and keeps every
 // tensor alive. Returns cudaGetLastError() after the launch
@@ -977,13 +1083,14 @@ extern "C" int fbt_flash_attention(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_f32(a, s);
   if (dtype != 1 || hd % 8 != 0 || hv % 8 != 0) return cudaErrorInvalidValue;
-  return with_build(hd, hv, [&](auto dqk, auto dv) {
-    return launch_wgmma<decltype(dqk)::value, decltype(dv)::value>(a, s);
+  return with_build(hd, hv, [&](auto dqk, auto dv, auto bk) {
+    return launch_build<decltype(dqk)::value, decltype(dv)::value,
+                        decltype(bk)::value>(a, s);
   });
 }
 
-// What the bf16 build for q/k head dim hd and v head dim hv asks of the
-// card: registers a thread as compiled (before setmaxnreg moves them from
+// What the bf16 build for q/k head dim hd and v head dim hv (its causal
+// launch's instantiation) asks of the card: registers a thread as compiled (before setmaxnreg moves them from
 // the producer to the consumers), static and dynamic shared memory in
 // bytes, and the blocks that fit on one SM. Returns a CUDA error code.
 extern "C" int fbt_flash_attention_attrs(int hd, int hv, int* regs,
@@ -994,10 +1101,11 @@ extern "C" int fbt_flash_attention_attrs(int hd, int hv, int* regs,
     return cudaErrorInvalidValue;
   const void* fn = nullptr;
   int dyn = 0;
-  with_build(hd, hv, [&](auto dqk, auto dv) {
-    constexpr int Q = decltype(dqk)::value, V = decltype(dv)::value;
-    fn = reinterpret_cast<const void*>(flash_fwd_wgmma<Q, V>);
-    dyn = Smem<Q, V>::kBytes;
+  with_build(hd, hv, [&](auto dqk, auto dv, auto bk) {
+    constexpr int Q = decltype(dqk)::value, V = decltype(dv)::value,
+                  K = decltype(bk)::value;
+    fn = reinterpret_cast<const void*>(flash_fwd_wgmma<Q, V, K, (Q > 128)>);
+    dyn = Smem<Q, V, K>::kBytes;
     return 0;
   });
   cudaFuncAttributes fa;

@@ -17,10 +17,11 @@ __all__ = ["launch", "check_inputs", "tma_refusal", "kernel_attributes",
            "SOURCE", "HEAD_DIM_QK_MAX", "HEAD_DIM_V_MAX"]
 
 SOURCE = CSRC / "flash_attention.cu"
-# the widest heads the kernel takes: q/k up to 192 (MLA's 128 + 64 rotary),
-# v up to 128; the bf16 body is built for (64, 64), (128, 128), (192, 128)
-HEAD_DIM_QK_MAX = 192
-HEAD_DIM_V_MAX = 128
+# the widest heads the kernel takes: q/k and v up to 256 (PaliGemma's); the
+# bf16 body is built for (64, 64), (128, 128), (192, 128) (MLA's 128 + 64
+# rotary q/k, v 128) and (256, 256)
+HEAD_DIM_QK_MAX = 256
+HEAD_DIM_V_MAX = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN: Optional[ctypes._CFuncPtr] = None
 

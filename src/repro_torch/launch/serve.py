@@ -8,7 +8,16 @@ on the card unless asked for the CPU:
 
 Any decoder-only GQA arch of the registry serves, the MoE llama4-scout
 included (``--arch llama4-scout-17b-a16e``); an MLA arch (deepseek-v3) is
-refused by the engine, whose page store holds GQA pages. ``--full`` serves
+refused by the engine, whose page store holds GQA pages, and so are the
+vlm (paligemma-3b) and enc-dec (whisper-medium) families, as the
+reference's engine refuses them. Those three are served through
+``models.lm.prefill`` and ``models.lm.decode_step``, the vlm with its
+image patches (``batch["patches"]``, decode positions counting them), the
+enc-dec with its frames (``batch["frames"]``, encoded once in the
+prefill); ``chip_smoke.py``'s ``serve-moe``, ``serve-vlm`` and
+``serve-whisper`` phases do so on the card at full width, and
+``chip_smoke.rehearse_serve_vlm()`` / ``rehearse_serve_whisper()`` on the
+CPU at SMOKE size. ``--full`` serves
 the published widths instead of ``SMOKE``'s (on the card; ``--layers``
 cuts the depth so the weights fit, e.g. llama4-scout at 8 layers is ~39 GB
 of bf16 weights):

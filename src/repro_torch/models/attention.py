@@ -1,8 +1,11 @@
-"""GQA attention: training forward, prefill, and one-token decode with a KV
-cache — the port's counterpart of ``repro.models.attention``.
+"""GQA attention: training forward, prefill, one-token decode with a KV
+cache, and the encoder-decoder's cross attention — the port's counterpart
+of ``repro.models.attention``.
 
 The same knobs as the reference: GQA group sizes, QKV bias (qwen2.5),
-qk-norm (qwen3), sliding window, prefix-LM masks, RoPE. Masks are specs,
+qk-norm (qwen3), sliding window, prefix-LM masks (PaliGemma's image
+prefix), RoPE or none (whisper's learned positions reach :func:`_qkv`
+with ``positions=None``). Masks are specs,
 not tensors. :func:`sdpa` dispatches as the reference does: the exact
 single-softmax path below ``FLASH_THRESH``; above it, a tensor on the card
 goes to the flash-attention kernel (``kernels.flash_attention.ops
@@ -27,7 +30,8 @@ from .layers import (Params, _trunc_normal, dense_init, norm_params,
 
 __all__ = ["NEG", "FLASH_THRESH", "Q_CHUNK", "KV_CHUNK", "MaskSpec", "CAUSAL",
            "FULL", "proj_out", "KVCache", "attn_params", "sdpa",
-           "attn_forward", "attn_prefill", "attn_decode", "init_kv_cache"]
+           "attn_forward", "attn_prefill", "attn_decode", "cross_attn_params",
+           "cross_attn_forward", "cross_kv", "init_kv_cache"]
 
 NEG = -1e30
 FLASH_THRESH = 2048 * 2048       # S*T above this -> tiled path
@@ -259,6 +263,33 @@ def attn_decode(p: Params, cfg: ModelConfig, x, pos, cache: KVCache,
     out = torch.einsum("bkrt,btkh->bkrh", w.to(x.dtype),
                        cache.v.to(x.dtype)).reshape(B, 1, Hk * n_rep * hd)
     return proj_out(out, p["wo"]), cache
+
+
+# ------------------------------------------------------------------ cross attn
+def cross_attn_params(gen, cfg: ModelConfig, dtype=None) -> Params:
+    dtype = dtype or cfg.dtype
+    d, H, Hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {"wq": dense_init(gen, d, H, hd, dtype=dtype),
+            "wk": dense_init(gen, d, Hk, hd, dtype=dtype),
+            "wv": dense_init(gen, d, Hk, hd, dtype=dtype),
+            "wo": _trunc_normal(gen, (H, hd, d), (H * hd) ** -0.5, dtype)}
+
+
+def cross_attn_forward(p: Params, cfg: ModelConfig, x, enc_kv) -> torch.Tensor:
+    """x [B,S,d] queries; enc_kv = (k, v) [B,T,Hk,hd] precomputed from the
+    encoder's output (:func:`cross_kv`, or the decode cache's bf16 rows).
+    No mask: above ``FLASH_THRESH`` (S·T) a tensor on the card goes to K5
+    with S != T."""
+    q = _heads(x, p["wq"])
+    k, v = enc_kv
+    out = sdpa(q, k.to(x.dtype), v.to(x.dtype), FULL,
+               cfg.n_heads // cfg.n_kv_heads)
+    return proj_out(out, p["wo"])
+
+
+def cross_kv(p: Params, enc_out) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output [B,T,d] -> cross attention's (k, v) [B,T,Hk,hd]."""
+    return _heads(enc_out, p["wk"]), _heads(enc_out, p["wv"])
 
 
 def init_kv_cache(cfg: ModelConfig, B: int, S_max: int, n_layers: int,

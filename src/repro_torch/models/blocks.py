@@ -1,12 +1,16 @@
 """Decoder block wiring — the port's counterpart of ``repro.models.blocks``.
 
 A block = pre-norm mixer + residual + pre-norm FFN + residual. The port
-has the decoder kinds of the dense and MoE families: the mixer GQA
+has the decoder kinds of the dense, vlm and MoE families: the mixer GQA
 attention (``"dense"``, ``"gqa+..."``) or MLA (``"mla+..."``), the FFN a
 dense MLP (``"dense"``, ``"...+mlp"``; ``"mla+mlp"`` takes ``d_ff_dense``
 when it is set) or MoE (``"...+moe"``, whose aux loss ``block_forward``
-returns). The plan :func:`block_kinds` is whole; the mamba, hybrid and
-enc-dec kinds raise ``NotImplementedError`` naming their ROADMAP item.
+returns); and the encoder-decoder's blocks, whose parameters
+:func:`enc_block_params` and :func:`dec_block_params` make and whose
+layers ``lm.py`` runs itself, as the reference's does (self attention, then
+for the decoder cross attention, then the MLP). The plan
+:func:`block_kinds` is whole; the mamba and hybrid kinds raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -18,8 +22,9 @@ from . import moe as MOE
 from .config import ModelConfig
 from .layers import Params, apply_norm, mlp_apply, mlp_params, norm_params
 
-__all__ = ["PORTED_KINDS", "block_kinds", "block_params", "block_forward",
-           "block_prefill", "block_decode"]
+__all__ = ["PORTED_KINDS", "block_kinds", "block_params", "enc_block_params",
+           "dec_block_params", "block_forward", "block_prefill",
+           "block_decode"]
 
 PORTED_KINDS = ("dense", "gqa+mlp", "gqa+moe", "mla+mlp", "mla+moe")
 
@@ -48,9 +53,9 @@ def block_kinds(cfg: ModelConfig) -> Tuple[Tuple[str, int], ...]:
 def _ported(kind: str) -> None:
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet: the mamba, hybrid and "
-            f"enc-dec blocks come with their families (ROADMAP queue 1, "
-            f"\"The other model families\")")
+            f"block kind {kind!r} is not ported yet: the mamba and hybrid "
+            f"blocks come with their families (ROADMAP queue 1, \"Modules "
+            f"to port\"); the enc-dec layers run in lm.py")
 
 
 def _mixer(p, cfg: ModelConfig, kind: str, h, positions, mask):
@@ -74,6 +79,27 @@ def block_params(gen, cfg: ModelConfig, kind: str) -> Params:
               else cfg.d_ff)
         p["mlp"] = mlp_params(gen, d, ff, cfg.mlp, dtype)
     return p
+
+
+def enc_block_params(gen, cfg: ModelConfig) -> Params:
+    """One encoder layer: self attention (no mask) and the MLP."""
+    d, dtype = cfg.d_model, cfg.dtype
+    return {"ln1": norm_params(gen, d, cfg.norm, dtype),
+            "attn": A.attn_params(gen, cfg),
+            "ln2": norm_params(gen, d, cfg.norm, dtype),
+            "mlp": mlp_params(gen, d, cfg.d_ff, cfg.mlp, dtype)}
+
+
+def dec_block_params(gen, cfg: ModelConfig) -> Params:
+    """One decoder layer: causal self attention, cross attention over the
+    encoder's output (``lnx`` its norm) and the MLP."""
+    d, dtype = cfg.d_model, cfg.dtype
+    return {"ln1": norm_params(gen, d, cfg.norm, dtype),
+            "attn": A.attn_params(gen, cfg),
+            "lnx": norm_params(gen, d, cfg.norm, dtype),
+            "cross": A.cross_attn_params(gen, cfg),
+            "ln2": norm_params(gen, d, cfg.norm, dtype),
+            "mlp": mlp_params(gen, d, cfg.d_ff, cfg.mlp, dtype)}
 
 
 def _ffn(p, cfg: ModelConfig, h):

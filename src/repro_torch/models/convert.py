@@ -12,9 +12,11 @@ bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy arrays, which
 ``torch.from_numpy`` refuses, so they travel as their 16-bit patterns
 (``int16`` views), bit for bit. The MoE trees (the float32 ``router``, the
 ``router_bias`` buffer, stacked experts, the ``mtp`` subtree) are such
-trees too. :func:`cache_from_numpy` and :func:`cache_to_numpy` carry a
+trees too, and so are the vlm's ``proj`` and the enc-dec's ``enc`` and
+``dec_pos``. :func:`cache_from_numpy` and :func:`cache_to_numpy` carry a
 decode cache (the reference's ``KVCache`` or ``MLACache``, a named tuple
-of arrays) across to the port's named tuple of the same fields and back.
+of arrays, or the enc-dec's dict of a ``KVCache`` and two arrays) across
+to the port's of the same fields and back.
 """
 from __future__ import annotations
 
@@ -62,15 +64,23 @@ def params_to_numpy(params: Params) -> dict:
 
 def cache_from_numpy(cache, device):
     """A reference decode cache (``KVCache(k, v)`` or ``MLACache(ckv,
-    krope)``, arrays) -> the port's named tuple of those fields, tensors on
+    krope)``, arrays, or the enc-dec's ``{"self": KVCache, "cross_k",
+    "cross_v"}``) -> the port's cache of those fields, tensors on
     ``device``, bit for bit."""
     from .attention import KVCache
     from .mla import MLACache
+    if isinstance(cache, Mapping):
+        return {k: cache_from_numpy(v, device) if hasattr(v, "_fields")
+                else _tensor(np.asarray(v), device) for k, v in cache.items()}
     kind = MLACache if hasattr(cache, "ckv") else KVCache
     return kind(*(_tensor(np.asarray(a), device) for a in cache))
 
 
 def cache_to_numpy(cache) -> dict:
     """A port cache (``KVCache`` or ``MLACache``) -> {field: numpy array}
-    (bf16 as ``ml_dtypes.bfloat16``)."""
+    (bf16 as ``ml_dtypes.bfloat16``); the enc-dec's dict -> the same keys,
+    ``"self"`` as such a dict."""
+    if isinstance(cache, Mapping):
+        return {k: cache_to_numpy(v) if hasattr(v, "_fields") else _array(v)
+                for k, v in cache.items()}
     return {f: _array(t) for f, t in zip(cache._fields, cache)}

@@ -1,6 +1,10 @@
 """Model assembly: init / forward / prefill / decode — the port's
 counterpart of ``repro.models.lm``, for the decoder-only dense and MoE
-families (GQA or MLA attention; DeepSeek's MTP head).
+families (GQA or MLA attention; DeepSeek's MTP head), the vlm family
+(PaliGemma: image patches projected and prepended to the text under a
+prefix-LM mask) and the enc-dec family (whisper: an encoder over stub
+frame embeddings with learned positions, :func:`encode`, and a decoder
+with cross attention).
 
 Parameters are a dict of tensors keyed and shaped as the reference's
 pytree: per-segment stacks ``p["seg0"][...]`` of shape ``[n_layers, ...]``.
@@ -14,8 +18,10 @@ non-batched matrix products (the reference's
 ``checkpoint_dots_with_no_batch_dims``) and recomputes the rest.
 :func:`prefill` and :func:`decode_step` are the serving engine's eager
 inference calls (run under ``torch.inference_mode()``); their cache is a
-``KVCache`` of ``[n_layers, ...]`` stacks, or an ``MLACache`` for MLA, and
-each layer writes its row in place. The ssm, hybrid, enc-dec and vlm
+``KVCache`` of ``[n_layers, ...]`` stacks, an ``MLACache`` for MLA, or for
+enc-dec the reference's dict ``{"self": KVCache, "cross_k", "cross_v"}``
+(the cross attention's bf16 k and v of every layer over the encoder's
+frames), and each layer writes its row in place. The ssm and hybrid
 families raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -31,19 +37,21 @@ from . import attention as A
 from . import blocks as BLK
 from . import mla as MLA
 from .config import ModelConfig
-from .layers import Params, apply_norm, dense_init, embed_init, norm_params
+from .layers import (Params, apply_norm, dense_init, embed_init, mlp_apply,
+                     norm_params)
 
-__all__ = ["init_params", "unembed", "forward", "mtp_logits", "init_cache",
-           "decode_step", "prefill", "layer_params"]
+__all__ = ["init_params", "unembed", "forward", "encode", "mtp_logits",
+           "init_cache", "decode_step", "prefill", "layer_params"]
+
+PORTED_FAMILIES = ("dense", "moe", "vlm", "encdec")
 
 
 def _ported_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet (the "
-            f"dense and moe decoders are); the ssm, hybrid, enc-dec and vlm "
-            f"families come later (ROADMAP queue 1, \"The other model "
-            f"families\")")
+            f"dense, moe, vlm and enc-dec families are); the ssm and hybrid "
+            f"families come next (ROADMAP queue 1, \"Modules to port\")")
 
 
 def layer_params(seg: Params, i: int) -> Params:
@@ -67,6 +75,18 @@ def _copy_layer(stacks: Params, layer: Params, i: int) -> None:
             stacks[k][i].copy_(v)
 
 
+def _stack_layers(make, n: int) -> Params:
+    """``n`` layers from ``make()``, stacked ``[n, ...]``, layer by layer:
+    no second full copy."""
+    seg = None
+    for j in range(n):
+        layer = make()
+        if seg is None:
+            seg = _alloc_stacks(layer, n)
+        _copy_layer(seg, layer, j)
+    return seg
+
+
 # ===================================================================== init
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random parameters drawn from ``gen``, on ``gen``'s device; the same
@@ -78,14 +98,22 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
                  "final_norm": norm_params(gen, d, cfg.norm, dtype)}
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, d, cfg.vocab, dtype=dtype)
+    if cfg.family == "encdec":
+        p["enc"] = {
+            "proj": dense_init(gen, cfg.frontend_dim, d, dtype=dtype),
+            "pos": dense_init(gen, cfg.enc_seq, d, dtype=dtype) * 0.02,
+            "blocks": _stack_layers(lambda: BLK.enc_block_params(gen, cfg),
+                                    cfg.n_enc_layers),
+            "ln_f": norm_params(gen, d, cfg.norm, dtype)}
+        p["dec_pos"] = dense_init(gen, cfg.enc_seq, d, dtype=dtype) * 0.02
+        p["dec_blocks"] = _stack_layers(
+            lambda: BLK.dec_block_params(gen, cfg), cfg.n_layers)
+        return p
+    if cfg.family == "vlm":
+        p["proj"] = dense_init(gen, cfg.frontend_dim, d, dtype=dtype)
     for i, (kind, n) in enumerate(BLK.block_kinds(cfg)):
-        seg = None
-        for j in range(n):     # layer by layer: no second full copy
-            layer = BLK.block_params(gen, cfg, kind)
-            if seg is None:
-                seg = _alloc_stacks(layer, n)
-            _copy_layer(seg, layer, j)
-        p[f"seg{i}"] = seg
+        p[f"seg{i}"] = _stack_layers(
+            lambda kind=kind: BLK.block_params(gen, cfg, kind), n)
     if cfg.mtp:
         d = cfg.d_model
         p["mtp"] = {
@@ -109,6 +137,16 @@ def _embed(p: Params, tokens):
 
 def _positions(B: int, S: int, device):
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+
+def _with_patches(p: Params, cfg: ModelConfig, batch: Dict, x):
+    """vlm: the image patches [B, n_patches, frontend_dim] projected and
+    prepended to the text embeddings x. Returns (x, the prefix-LM mask's
+    bidirectional prefix: n_patches for vlm, else 0)."""
+    if cfg.family != "vlm":
+        return x, 0
+    xp = batch["patches"].to(x.dtype) @ p["proj"]
+    return torch.cat([xp, x], dim=1), cfg.n_patches
 
 
 # ===================================================================== train
@@ -146,13 +184,17 @@ def _unbind_layers(seg: Params, n: int):
 
 def forward(p: Params, cfg: ModelConfig, batch: Dict):
     """-> (logits [B,S,V], aux_loss (float32 scalar, the sum over the MoE
-    layers), hidden [B,S,d])."""
+    layers), hidden [B,S,d]). For vlm, S counts the image patches first;
+    enc-dec takes ``batch["frames"]`` through :func:`encode`."""
     _ported_family(cfg)
+    if cfg.family == "encdec":
+        return _forward_encdec(p, cfg, batch)
     tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = _embed(p, tokens)
+    B = tokens.shape[0]
+    x, prefix_len = _with_patches(p, cfg, batch, _embed(p, tokens))
+    S = x.shape[1]
     positions = _positions(B, S, x.device)
-    mask = A.MaskSpec("causal", cfg.window, 0)
+    mask = A.MaskSpec("causal", cfg.window, prefix_len)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, n) in enumerate(BLK.block_kinds(cfg)):
         for pl in _unbind_layers(p[f"seg{i}"], n):
@@ -162,6 +204,55 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict):
             aux = aux + a
     h = apply_norm(x, p["final_norm"], cfg.norm, cfg.norm_eps)
     return unembed(p, cfg, h), aux, h
+
+
+def _norm(x, w, cfg: ModelConfig):
+    return apply_norm(x, w, cfg.norm, cfg.norm_eps)
+
+
+def _enc_layer(pl: Params, cfg: ModelConfig, h):
+    """One encoder layer: self attention over every frame (no mask, no
+    rotary: the positions were added to the input), then the MLP."""
+    h = h + A.attn_forward(pl["attn"], cfg, _norm(h, pl["ln1"], cfg), None,
+                           None)
+    return h + mlp_apply(pl["mlp"], _norm(h, pl["ln2"], cfg), cfg.mlp)
+
+
+def _dec_rest(pl: Params, cfg: ModelConfig, h, kv):
+    """A decoder layer after its self attention: cross attention over the
+    encoder's (k, v), then the MLP."""
+    h = h + A.cross_attn_forward(pl["cross"], cfg, _norm(h, pl["lnx"], cfg),
+                                 kv)
+    return h + mlp_apply(pl["mlp"], _norm(h, pl["ln2"], cfg), cfg.mlp)
+
+
+def encode(p: Params, cfg: ModelConfig, frames):
+    """Whisper's encoder over stub frame embeddings [B, T, frontend_dim]:
+    projected, the learned positions added, the encoder layers, the final
+    norm -> [B, T, d]."""
+    e = p["enc"]
+    T = frames.shape[1]
+    x = frames.to(cfg.dtype) @ e["proj"] + e["pos"][:T]
+    for pl in _unbind_layers(e["blocks"], cfg.n_enc_layers):
+        x = _maybe_remat(lambda h, pl=pl: _enc_layer(pl, cfg, h), cfg)(x)
+    return _norm(x, e["ln_f"], cfg)
+
+
+def _forward_encdec(p: Params, cfg: ModelConfig, batch: Dict):
+    enc_out = encode(p, cfg, batch["frames"])
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    x = _embed(p, tokens) + p["dec_pos"][:S]
+
+    def body(h, pl):
+        g = _norm(h, pl["ln1"], cfg)
+        h = h + A.attn_forward(pl["attn"], cfg, g, None, A.CAUSAL)
+        return _dec_rest(pl, cfg, h, A.cross_kv(pl["cross"], enc_out))
+    for pl in _unbind_layers(p["dec_blocks"], cfg.n_layers):
+        x = _maybe_remat(lambda h, pl=pl: body(h, pl), cfg)(x)
+    h = _norm(x, p["final_norm"], cfg)
+    return (unembed(p, cfg, h),
+            torch.zeros((), dtype=torch.float32, device=x.device), h)
 
 
 def mtp_logits(p: Params, cfg: ModelConfig, hidden, tokens):
@@ -181,11 +272,24 @@ def mtp_logits(p: Params, cfg: ModelConfig, hidden, tokens):
 
 
 # ===================================================================== caches
+def _encdec_cache(cfg: ModelConfig, B: int, S_max: int, T: int, device):
+    shape = (cfg.n_layers, B, T, cfg.n_kv_heads, cfg.hd)
+    dev = torch.device("cuda" if device is None else device)
+    return {"self": A.init_kv_cache(cfg, B, S_max, cfg.n_layers,
+                                    device=device),
+            "cross_k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+            "cross_v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
+
+
 def init_cache(cfg: ModelConfig, B: int, S_max: int, device=None):
     """Zero cache on ``device`` (the card when None), bf16: a ``KVCache``
-    ``[n_layers, B, S_max, n_kv, hd]``, or for MLA an ``MLACache`` of
-    ``[n_layers, B, S_max, kv_lora]`` and ``[n_layers, B, S_max, rope]``."""
+    ``[n_layers, B, S_max, n_kv, hd]``, for MLA an ``MLACache`` of
+    ``[n_layers, B, S_max, kv_lora]`` and ``[n_layers, B, S_max, rope]``,
+    for enc-dec ``{"self": KVCache, "cross_k", "cross_v"}`` with the cross
+    rows ``[n_layers, B, enc_seq, n_kv, hd]``."""
     _ported_family(cfg)
+    if cfg.family == "encdec":
+        return _encdec_cache(cfg, B, S_max, cfg.enc_seq, device)
     if cfg.attention == "mla":
         return MLA.init_mla_cache(cfg, B, S_max, cfg.n_layers, device=device)
     return A.init_kv_cache(cfg, B, S_max, cfg.n_layers, device=device)
@@ -198,11 +302,22 @@ def _layer_cache(cache, i: int):
 
 # ===================================================================== decode
 def decode_step(p: Params, cfg: ModelConfig, tokens, pos, cache):
-    """One new token for every sequence. tokens [B] int32, pos [B] int32.
-    Returns (logits [B, V], cache). Each layer's new k/v row is written
-    into ``cache`` in place, and the same cache comes back."""
+    """One new token for every sequence. tokens [B] int32, pos [B] int32
+    (for vlm counting the image patches). Returns (logits [B, V], cache).
+    Each layer's new k/v row is written into ``cache`` in place, and the
+    same cache comes back."""
     _ported_family(cfg)
     x = _embed(p, tokens)[:, None, :]          # [B,1,d]
+    if cfg.family == "encdec":
+        x = x + p["dec_pos"][pos.long()][:, None]
+        for j in range(cfg.n_layers):
+            pl = layer_params(p["dec_blocks"], j)
+            y, _ = A.attn_decode(pl["attn"], cfg, _norm(x, pl["ln1"], cfg),
+                                 pos, _layer_cache(cache["self"], j))
+            x = _dec_rest(pl, cfg, x + y, (cache["cross_k"][j],
+                                           cache["cross_v"][j]))
+        h = _norm(x, p["final_norm"], cfg)
+        return unembed(p, cfg, h)[:, 0], cache
     off = 0
     for i, (kind, n) in enumerate(BLK.block_kinds(cfg)):
         for j in range(n):
@@ -219,14 +334,19 @@ def prefill(p: Params, cfg: ModelConfig, batch: Dict, S_max: int):
 
     Only the final position's logits are computed (serving practice — the
     full [B,S,V] tensor never materializes). Each layer's cache goes
-    straight into its row of the ``[n_layers, ...]`` cache.
+    straight into its row of the ``[n_layers, ...]`` cache. vlm prepends
+    the projected ``batch["patches"]`` (S_max must hold them); enc-dec
+    runs the encoder over ``batch["frames"]`` first.
     """
     _ported_family(cfg)
+    if cfg.family == "encdec":
+        return _prefill_encdec(p, cfg, batch, S_max)
     tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = _embed(p, tokens)
+    B = tokens.shape[0]
+    x, prefix_len = _with_patches(p, cfg, batch, _embed(p, tokens))
+    S = x.shape[1]
     positions = _positions(B, S, x.device)
-    mask = A.MaskSpec("causal", cfg.window, 0)
+    mask = A.MaskSpec("causal", cfg.window, prefix_len)
     cache = init_cache(cfg, B, S_max, device=x.device)
     off = 0
     for i, (kind, n) in enumerate(BLK.block_kinds(cfg)):
@@ -237,4 +357,28 @@ def prefill(p: Params, cfg: ModelConfig, batch: Dict, S_max: int):
                 t.copy_(ct)
         off += n
     h = apply_norm(x[:, -1:], p["final_norm"], cfg.norm, cfg.norm_eps)
+    return unembed(p, cfg, h)[:, 0], cache
+
+
+def _prefill_encdec(p: Params, cfg: ModelConfig, batch: Dict, S_max: int):
+    """Enc-dec prefill: the encoder, then each decoder layer with its self
+    attention's cache and its cross attention's k and v (over the
+    encoder's T frames, rounded to bf16) written into its rows."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    enc_out = encode(p, cfg, batch["frames"])
+    x = _embed(p, tokens) + p["dec_pos"][:S]
+    mask = A.MaskSpec("causal", cfg.window, 0)
+    cache = _encdec_cache(cfg, B, S_max, enc_out.shape[1], x.device)
+    for j in range(cfg.n_layers):
+        pl = layer_params(p["dec_blocks"], j)
+        y, c = A.attn_prefill(pl["attn"], cfg, _norm(x, pl["ln1"], cfg),
+                              None, mask, S_max)
+        for t, ct in zip(_layer_cache(cache["self"], j), c):
+            t.copy_(ct)
+        kv = A.cross_kv(pl["cross"], enc_out)
+        cache["cross_k"][j].copy_(kv[0])
+        cache["cross_v"][j].copy_(kv[1])
+        x = _dec_rest(pl, cfg, x + y, kv)
+    h = _norm(x[:, -1:], p["final_norm"], cfg)
     return unembed(p, cfg, h)[:, 0], cache

@@ -1,7 +1,7 @@
 """Loss assembly — the port's counterpart of ``repro.train.losses``:
-shifted-token cross entropy, plus the MoE auxiliary loss and DeepSeek's
-MTP loss (token t+2 from the trunk at t). The vlm branch raises until its
-family is ported."""
+shifted-token cross entropy (for vlm over the text positions only, after
+the image patches), plus the MoE auxiliary loss and DeepSeek's MTP loss
+(token t+2 from the trunk at t)."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -21,13 +21,10 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict
             ) -> Tuple[torch.Tensor, Dict]:
     """-> (loss, metrics {"ce", "aux", ["mtp_ce",] "loss"}), float32
     scalars."""
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: the vlm text-only loss needs the vlm family's "
-            f"forward, not ported yet (ROADMAP queue 1, \"The other model "
-            f"families\")")
     logits, aux, hidden = lm.forward(params, cfg, batch)
     tokens = batch["tokens"]
+    if cfg.family == "vlm":        # text positions only
+        logits = logits[:, cfg.n_patches:]
     ce = softmax_xent(logits[:, :-1], tokens[:, 1:])
     loss = ce + AUX_COEF * aux
     metrics = {"ce": ce, "aux": aux}

@@ -669,6 +669,30 @@ def test_cuda_k5_p_layout_with_identity_v_at_192_128(cuda_device, causal):
     assert launched and r["max_err_over_tol"] <= 1.0, r
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", (False, True))
+def test_cuda_k5_p_layout_with_identity_v_at_256(cuda_device, causal):
+    """The identity-v check of the (256, 256) build: v = the 256 x 256
+    identity over 256 keys (four 64-key tiles), so the output is the
+    softmax weights themselves (p·v as m64n256k16, v read transposed from
+    four 64-column boxes)."""
+    from chip_smoke import _err_over_tol, k5_tolerance
+    from repro_torch.kernels.flash_attention import cuda as k5cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(device="cuda").manual_seed(256 + causal)
+    S, T, hd = 200, 256, 256
+    q = torch.randn((1, S, hd), generator=g, device="cuda").bfloat16()
+    k = torch.randn((1, T, hd), generator=g, device="cuda").bfloat16()
+    v = torch.eye(T, device="cuda", dtype=torch.bfloat16)[None]
+    kw = dict(scale=hd ** -0.5, kv_len=T, causal=causal, window=0,
+              prefix_len=0)
+    got, launched = k5cuda.launch(q[:, None], k[:, None], v[:, None],
+                                  n_rep=1, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    r = _err_over_tol(got[:, :, 0], want, k5_tolerance(q, k, v, want, **kw))
+    assert launched and r["max_err_over_tol"] <= 1.0, r
+
+
 # Faults planted in the bf16 kernel (the served path's flash_fwd_wgmma),
 # each (what the source says, what the mutant says): the bound of
 # chip_smoke.k5_tolerance must reject every one on K5_CASES.
@@ -691,7 +715,17 @@ K5_MUTANTS = {
     "diagonal_dropped": (
         "hi[r] = a.causal ? min(qi + 1, a.kv_len) : a.kv_len;",
         "hi[r] = a.causal ? min(qi, a.kv_len) : a.kv_len;"),
+    # the (256, 256) build's q kᵀ (64-key tiles, m64n64) adds to the last
+    # tile's p instead of starting from 0: only that build's cases may fail
+    "qk_accumulates_in_64_key_tiles": ("    wgmma_ss_n64(s, a, b, acc);",
+                                       "    wgmma_ss_n64(s, a, b, 1);"),
 }
+ONLY_256 = {"qk_accumulates_in_64_key_tiles"}
+
+
+def _build_256(c) -> bool:
+    """Whether ``K5_CASES`` case ``c`` runs the (256, 256) build."""
+    return c["hd"] > 192 or c.get("hv", c["hd"]) > 128
 
 
 @pytest.fixture(scope="module")
@@ -720,8 +754,9 @@ def test_cuda_k5_bound_rejects_planted_faults(cuda_device, k5_mutants, name,
                                               monkeypatch):
     """The bf16 bound is tight enough to see a wrong kernel: each mutant of
     ``K5_MUTANTS``, swapped in for the kernel, fails ``k5_sweep``, and
-    fails one of its cases of q/k head dim above 128 (the (192, 128)
-    build) too. The worst error, the worst error over the bound and,
+    fails one of its cases of q/k head dim above 128 (the (192, 128) or
+    (256, 256) build) too; a mutant of the (256, 256) build alone
+    (``ONLY_256``) fails that build's cases and no other. The worst error, the worst error over the bound and,
     beside them, the largest |v| of 2^-6 (the size of a bound scaled to
     max|v|) are printed."""
     import json
@@ -738,6 +773,9 @@ def test_cuda_k5_bound_rejects_planted_faults(cuda_device, k5_mutants, name,
     assert out["failures"], name
     assert out["max_err_over_tol"] > 1.0
     assert any(K5_CASES[i]["hd"] > 128 for i in out["failed_cases"]), name
+    if name in ONLY_256:
+        assert all(_build_256(K5_CASES[i]) for i in out["failed_cases"]), \
+            out["failed_cases"]
 
 
 @pytest.mark.cuda
@@ -756,12 +794,12 @@ def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take(
         k5.flash_sdpa(q, kv, kv, CAUSAL, 4, 0.25)      # 4 heads != 2 x 4
     with pytest.raises(ValueError):
         k5.flash_sdpa(q, kv, kv.cpu(), CAUSAL, 2, 0.25)
-    big = torch.zeros((1, 8, 2, 256), device="cuda")
+    big = torch.zeros((1, 8, 2, 264), device="cuda")
     with pytest.raises(ValueError):
-        k5.flash_sdpa(big, big, big, CAUSAL, 1, 0.25)  # head dim > 192
-    wide = torch.zeros((1, 8, 2, 192), device="cuda")
+        k5.flash_sdpa(big, big, big, CAUSAL, 1, 0.25)  # head dim > 256
+    wide = torch.zeros((1, 8, 2, 320), device="cuda")
     with pytest.raises(ValueError):
-        k5.flash_sdpa(wide, wide, wide, CAUSAL, 1, 0.25)  # v head dim > 128
+        k5.flash_sdpa(q, kv, wide, CAUSAL, 2, 0.25)  # v head dim > 256
     buf = torch.zeros(1 + 8 * 4 * 16, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="TMA"):   # base 2 bytes off
         k5.flash_sdpa(buf[1:].view(1, 8, 4, 16), kv.bfloat16(),
@@ -923,19 +961,40 @@ def test_cuda_moe_train_step_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch,over,launches", (
+    ("paligemma-3b", {}, 2 * 2),
+    ("whisper-medium", {"enc_seq": 2304}, (2 + 2 + 2) * 2)))
+def test_cuda_vlm_and_encdec_train_steps_match_cpu(cuda_device, arch, over,
+                                                   launches):
+    """One train step of paligemma-3b's SMOKE config (8 patches before
+    2,304 text tokens, the prefix-LM mask, the text-only loss) and of
+    whisper-medium's (2,304 frames and tokens: K5 in the encoder, the
+    decoder's self attention and its cross attention) from one state on
+    the card and on the CPU: chip_smoke's check (d), within
+    TRAIN_STEP_BOUND; K5 once an attention call, a microbatch."""
+    res, fails = train_parity(0, cuda_device, arch=arch, **over)
+    assert not fails, (fails, res)
+    assert res["k5_launches"] == launches
+
+
+@pytest.mark.cuda
 def test_cuda_k5_attributes_of_each_build(cuda_device):
-    """The three bf16 builds, as ``kernel_attributes`` reads them: (192,
-    128) has one q buffer (214,112 bytes of shared memory), the others two;
-    one block a SM each."""
+    """The four bf16 builds, as ``kernel_attributes`` reads them: (192,
+    128) has one q buffer (214,112 bytes of shared memory), (256, 256) one
+    q buffer and two stages of 64-key k and v tiles (197,728 bytes), the
+    others two q buffers; one block a SM each."""
     from repro_torch.kernels.flash_attention import cuda as k5cuda
     want = {(64, 64): 1024 + 2 * 16384 + 2 * 2 * 16384 + 96,
             (128, 128): 1024 + 2 * 32768 + 2 * 2 * 32768 + 96,
-            (192, 128): 1024 + 49152 + 2 * (49152 + 32768) + 96}
+            (192, 128): 1024 + 49152 + 2 * (49152 + 32768) + 96,
+            (256, 256): 1024 + 65536 + 2 * (32768 + 32768) + 96}
     for (hd, hv), smem in want.items():
         a = k5cuda.kernel_attributes(hd, hv)
         assert a["dynamic_smem_bytes"] == smem and a["blocks_per_sm"] == 1, a
     assert k5cuda.kernel_attributes(136, 64) == k5cuda.kernel_attributes(
         192, 128)
+    assert k5cuda.kernel_attributes(200, 136) == k5cuda.kernel_attributes(
+        256, 256)
 
 
 @pytest.mark.cuda

@@ -70,6 +70,30 @@ def test_flash_attention_matches_reference_kernel_sweep(BH, S, T, hd, hv, bq,
         assert np.abs(got.numpy() - _np(rr)).max() < TOL, (causal, window, pre)
 
 
+@pytest.mark.parametrize("prefix", [256, 200])
+def test_flash_attention_256_prefix_lm_matches_reference_kernel(prefix):
+    """Head dims (256, 256), PaliGemma's, under the prefix-LM mask: a
+    bidirectional prefix of 256 keys (its image patches), whose first q
+    tile sees keys past its own diagonal, and of 200 (no multiple of any
+    key tile). The port's plain version against the reference's kernel in
+    interpret mode and its ref."""
+    rng = np.random.default_rng(prefix)
+    BH, S, hd = 2, 384, 256
+    q = rng.standard_normal((BH, S, hd)).astype(np.float32)
+    k = rng.standard_normal((BH, S, hd)).astype(np.float32)
+    v = rng.standard_normal((BH, S, hd)).astype(np.float32)
+    kw = dict(scale=hd ** -0.5, kv_len=S, causal=True, window=0,
+              prefix_len=prefix)
+    rk = flash_attention_kernel(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), block_q=128, block_k=128,
+                                interpret=True, **kw)
+    rr = r_flash_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
+    got = flash_attention_ref(_t(q), _t(k), _t(v), **kw).numpy()
+    assert got.shape == (BH, S, hd)
+    assert np.abs(got - _np(rk)).max() < TOL
+    assert np.abs(got - _np(rr)).max() < TOL
+
+
 @pytest.mark.parametrize("kv_len,window", [(200, 0), (131, 0), (96, 40)])
 def test_flash_attention_kv_len_tail_and_empty_rows(kv_len, window):
     """Keys at or past ``kv_len`` are masked; a row with no valid key (a
@@ -198,6 +222,19 @@ def test_k5_bound_admits_tiled_bf16_and_rejects_a_dropped_tile():
     assert r["max_err_over_tol"] > 1.0, r
 
 
+def test_k5_check_counts_a_nan_as_an_infinite_error():
+    """``chip_smoke._err_over_tol``, which every K5 check reads: a NaN in
+    the kernel's output is an infinite error, so neither its maximum nor
+    ``k5_sweep``'s running maximum over the cases can pass it."""
+    import chip_smoke
+    want = torch.ones(4)
+    got = torch.tensor([1.0, float("nan"), 1.0, 1.0])
+    r = chip_smoke._err_over_tol(got, want, torch.full((4,), 0.5))
+    assert r["max_abs_err"] == float("inf")
+    assert r["max_err_over_tol"] == float("inf")
+    assert chip_smoke._err_over_tol(want, want, want)["max_err_over_tol"] == 0
+
+
 def test_sdpa_dispatch_on_the_cpu_takes_the_tiled_path():
     """Above ``FLASH_THRESH`` a CPU tensor runs ``_sdpa_flash`` (no kernel
     launch); below it ``_sdpa_small``."""
@@ -282,12 +319,17 @@ def _qkv(H=4, Hk=2, S=64, T=64, hd=64, hv=64, dtype=torch.bfloat16):
     ("float16", lambda: _qkv(dtype=torch.float16), {}, TypeError),
     ("last dim strided", lambda: (_qkv()[0].transpose(2, 3), *_qkv()[1:]), {},
      ValueError),
-    ("head dim 256", lambda: _qkv(hd=256, hv=256), {}, ValueError),
+    ("head dim 256", lambda: _qkv(hd=256, hv=256), {}, None),
     ("bf16 q/k 192, v 128 (MLA)", lambda: _qkv(hd=192, hv=128), {}, None),
     ("float32 q/k 136, v 64", lambda: _qkv(hd=136, hv=64,
                                            dtype=torch.float32), {}, None),
-    ("v head dim 192", lambda: _qkv(hd=192, hv=192), {}, ValueError),
-    ("q/k head dim 200", lambda: _qkv(hd=200, hv=128), {}, ValueError),
+    ("v head dim 192", lambda: _qkv(hd=192, hv=192), {}, None),
+    ("q/k head dim 200", lambda: _qkv(hd=200, hv=128), {}, None),
+    ("float32 head dim 256", lambda: _qkv(hd=256, hv=256,
+                                          dtype=torch.float32), {}, None),
+    ("head dim 264", lambda: _qkv(hd=264, hv=264), {}, ValueError),
+    ("v head dim 320", lambda: _qkv(hd=64, hv=320), {}, ValueError),
+    ("q/k head dim 320", lambda: _qkv(hd=320, hv=128), {}, ValueError),
     ("kv_len past T", lambda: _qkv(), dict(kv_len=65), ValueError),
     ("bf16 base not aligned",
      lambda: (_heads(_bf16((1, 64, 4, 64), offset=1)), *_qkv()[1:]), {},

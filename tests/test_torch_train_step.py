@@ -245,9 +245,10 @@ def test_remat_dots_saves_the_matrix_products_only():
 
 
 def test_unported_losses_raise_naming_the_roadmap():
-    """The vlm loss and the families whose forward is not ported raise;
-    deepseek-v3's MTP loss runs since the MoE slice (test_torch_moe.py)."""
-    for arch in ("paligemma-3b", "falcon-mamba-7b", "whisper-medium"):
+    """The families whose forward is not ported raise; deepseek-v3's MTP
+    loss runs since the MoE slice (test_torch_moe.py), the vlm and enc-dec
+    losses since their slice (test_torch_vlm_encdec.py)."""
+    for arch in ("falcon-mamba-7b", "zamba2-7b"):
         cfg = get_config(arch, smoke=True)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PL.loss_fn({}, cfg, {"tokens": torch.zeros((1, 4),
