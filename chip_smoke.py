@@ -14,8 +14,9 @@ leaf-filter kernel K4), and LLM serving through the FB+-tree prefix cache
 launch of the flash-attention kernel K5), training, and the MoE family
 (llama4-scout through ``Engine``, deepseek-v3's MLA with K5 at q/k head
 dim 192), the vlm family (paligemma-3b, K5 at head dim 256 under the
-prefix-LM mask) and the enc-dec family (whisper-medium, K5 without a mask
-over 32,768 frames):
+prefix-LM mask), the enc-dec family (whisper-medium, K5 without a mask
+over 32,768 frames), the ssm family (falcon-mamba-7b, no attention) and
+the hybrid family (zamba2-7b, K5 at head dim 112 in its shared attention):
 
 1. the card's name and power limit;
 2. build of every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
@@ -156,7 +157,21 @@ over 32,768 frames):
     requests of 32,768 frames and 256 tokens: K5 without a mask at
     32,768^2 in every encoder layer and at S != T in every cross
     attention) and 32 decode steps, with the checks of ``serve-vlm`` (K5's
-    encoder check on the first and last 1,024 rows of layer 0).
+    encoder check on the first and last 1,024 rows of layer 0);
+19. ``serve-mamba``: falcon-mamba-7b as configured (:data:`SERVE_MAMBA`;
+    64 mamba1 layers, no attention: K5 launches 0) through ``lm.prefill``
+    (4 x 2,048 tokens; the chunked selective scan in torch ops) and 32
+    decode steps, with decode against forward (on the float32 draws of the
+    same seed, the bf16 model's drift printed beside it), the SMOKE model
+    on the card against the CPU and a SMOKE train step; layer 0's mixer
+    timed with CUDA events, split into its input projections, the scan and
+    its output;
+20. ``serve-zamba``: zamba2-7b as configured (:data:`SERVE_ZAMBA`; 13
+    groups of 5 mamba2 layers, each followed by the shared attention+MLP
+    block with its LoRA, then 3) through ``lm.prefill`` (4 x 3,072 tokens:
+    K5 at head dim 112, the (128, 128) build, once an occurrence, 13
+    launches a prefill) and 32 decode steps, with the checks of
+    ``serve-mamba`` and K5 on the first occurrence's real q, k, v.
 
 Each phase prints one JSON line. The line before the last holds the
 kernels table; the last line is ``{"ok": true, "device": ...}``. The script
@@ -166,8 +181,9 @@ port's sources are not beside it, or when any check fails. Run:
 checks on the CPU at SMOKE size, ``rehearse_shard()`` the shard phases'
 at 6,000 keys, ``rehearse_train()`` the train phase's at SMOKE size,
 ``rehearse_serve_moe()`` the serve-moe phase's at SMOKE size,
-``rehearse_serve_vlm()`` and ``rehearse_serve_whisper()`` the serve-vlm
-and serve-whisper phases' at SMOKE size.
+``rehearse_serve_vlm()``, ``rehearse_serve_whisper()``,
+``rehearse_serve_mamba()`` and ``rehearse_serve_zamba()`` the serve-vlm,
+serve-whisper, serve-mamba and serve-zamba phases' at SMOKE size.
 """
 from __future__ import annotations
 
@@ -2020,9 +2036,12 @@ REHEARSAL_MIX = dict(smoke=True, n_req=16, plen=96, shared=64, new_tokens=8,
 # 256) build, PaliGemma's (one sequence of its served prefill, 256 patches
 # + 2,048 text tokens under the prefix-LM mask; a prefix of 200, no
 # multiple of the 64-key tile; a window; kv_len < T; S != T without a
-# mask; q/k 200 and v 136 padded to 256); the last is the (64, 64) build
+# mask; q/k 200 and v 136 padded to 256); the next is the (64, 64) build
 # without a mask at S != T past one q tile and over several key tiles
-# (whisper's cross attention).
+# (whisper's cross attention); the last three take head dim 112 (zamba2's
+# shared attention) through the (128, 128) build, zero-padded by TMA: MHA
+# 32/32 causal at S = T = 3,072 (the served prefill's), a window, and a
+# flat case with kv_len < T whose window leaves its last rows no key.
 K5_CASES = (
     dict(api="sdpa", B=2, S=200, T=200, H=8, Hk=2, hd=32, mask=("causal", 0, 0)),
     dict(api="sdpa", B=1, S=130, T=70, H=4, Hk=4, hd=16, mask=("full", 0, 0)),
@@ -2065,6 +2084,12 @@ K5_CASES = (
          mask=("causal", 40, 0)),
     dict(api="sdpa", B=2, S=300, T=1000, H=16, Hk=16, hd=64,
          mask=("full", 0, 0)),
+    dict(api="sdpa", B=1, S=3072, T=3072, H=32, Hk=32, hd=112,
+         mask=("causal", 0, 0)),
+    dict(api="sdpa", B=2, S=1100, T=1100, H=4, Hk=4, hd=112,
+         mask=("causal", 300, 0)),
+    dict(api="flat", BH=3, S=256, T=300, hd=112, kv_len=96,
+         mask=("causal", 40, 0)),
 )
 
 
@@ -2886,7 +2911,12 @@ def k5_calls(cfg) -> int:
     """The attention calls of one forward pass (each a K5 launch on the
     card when its S·T passes ``FLASH_THRESH``): one a layer, one in the MTP
     block, and for enc-dec the encoder's layers and the decoder's cross
-    attention too."""
+    attention too; none for ssm, one a shared-block occurrence for
+    hybrid."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.hybrid_pattern().count("a")
     n = cfg.n_layers + cfg.mtp
     if cfg.family == "encdec":
         n += cfg.n_enc_layers + cfg.n_layers
@@ -3723,6 +3753,47 @@ REHEARSAL_WHISPER = dict(
     steps=4, prefills=2, parity=dict(text=24, steps=4),
     card_vs_cpu=dict(B=2, text=24, frames=40, steps=4, over={},
                      train_seq=32))
+# falcon-mamba-7b as configured (64 mamba1 layers, d_model 4,096, d_inner
+# 8,192, ssm_state 16, dt_rank 256, vocab 65,024 tied), uncut: 7.01B
+# parameters. "serve": prefills of 4 x 2,048 tokens (one untimed warm-up,
+# then the median of three; no attention, so no K5) and 32 decode steps;
+# "parity" decode vs forward on one request of 2,100 tokens (9 scan chunks,
+# the last ragged), 4 decode steps, on the same draws in float32: in bf16
+# the card's products round otherwise at M = 1 than at M = 2,100 (layer
+# 0's dt already differs by an ulp in places on the first decode step,
+# tools/decode_drift.py), and 64 layers carry that to 0.13-0.21 of the
+# logits, past the bound; that drift is measured beside it
+# (bf16_decode_drift). "card_vs_cpu" the SMOKE model
+# on the card and the CPU, then a SMOKE train step of 2 x 2,304.
+SERVE_MAMBA = dict(
+    arch="falcon-mamba-7b", smoke=False, batch=4, text=2048, steps=32,
+    prefills=4, parity=dict(text=2100, steps=4, float32=True),
+    card_vs_cpu=dict(B=2, text=2092, frames=0, steps=4, over={},
+                     train_seq=2304))
+REHEARSAL_MAMBA = dict(
+    arch="falcon-mamba-7b", smoke=True, batch=2, text=300, steps=4,
+    prefills=2, parity=dict(text=300, steps=4, float32=True),
+    card_vs_cpu=dict(B=2, text=40, frames=0, steps=4, over={}, train_seq=32))
+# zamba2-7b as configured (81 layers: 13 groups of 5 mamba2 layers, each
+# followed by the shared attention+MLP block with its occurrence's LoRA,
+# then 3; d_model 3,584, MHA 32 heads of 112, d_ff 14,336, ssm_state 64,
+# LoRA rank 128, vocab 32,000 tied), uncut: 5.63B parameters (68 mamba2
+# layers). "serve":
+# prefills of 4 x 3,072 tokens (S·T passes FLASH_THRESH: K5 at head dim
+# 112 in each of the 13 occurrences) and 32 decode steps; "parity" one
+# request of 2,100 tokens (K5 in forward and prefill), 4 decode steps, in
+# float32 as falcon-mamba's (bf16 drift 0.13-0.20 measured beside it);
+# "card_vs_cpu" the SMOKE model on 2,092 tokens (K5 on the card), then a
+# SMOKE train step of 2 x 2,304.
+SERVE_ZAMBA = dict(
+    arch="zamba2-7b", smoke=False, batch=4, text=3072, steps=32,
+    prefills=4, parity=dict(text=2100, steps=4, float32=True),
+    card_vs_cpu=dict(B=2, text=2092, frames=0, steps=4, over={},
+                     train_seq=2304))
+REHEARSAL_ZAMBA = dict(
+    arch="zamba2-7b", smoke=True, batch=2, text=300, steps=4,
+    prefills=2, parity=dict(text=300, steps=4, float32=True),
+    card_vs_cpu=dict(B=2, text=40, frames=0, steps=4, over={}, train_seq=32))
 FAMILY_PARITY_BOUND = ("tests/test_torch_models.py's: float32 logits 1e-4 "
                        "(decode 1e-3) of the largest, cache entries 2^-7 of "
                        "their own magnitude + 1e-4 of the largest; bf16 5e-2 "
@@ -3781,18 +3852,34 @@ def family_decode_vs_forward(params, cfg, batch, steps: int):
     errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
     fails = [] if max(errs) < 0.15 else [f"decode vs forward: errors {errs}"]
     return dict(S=S, steps=steps, max_abs_err=max(errs), errs=errs,
+                logit_max=float(want.abs().max()),
                 bound="max |logits - forward's| < 0.15 "
                       "(tests/test_models.py)"), fails
 
 
-def _as_kv(cache):
-    """The caches of one family as ``KVCache``s, for :func:`_cache_fails`:
-    the cache itself, or the enc-dec's self cache and its cross rows."""
+def bf16_decode_drift(params, cfg, batch, steps: int) -> dict:
+    """How far the bf16 model's decode steps drift from its teacher-forced
+    forward (max |logits diff| a step, after the prefill's), measured and
+    held to no bound: a bf16 product rounds otherwise at M = 1 than at M =
+    S on the card, and a deep stack carries those ulps on (``PERF.md``,
+    PR 22)."""
+    r, _ = family_decode_vs_forward(params, cfg, batch, steps)
+    return {"errs": r["errs"], "max_abs_err": r["max_abs_err"],
+            "logit_max": r["logit_max"], "param_dtype": cfg.param_dtype}
+
+
+def _cache_parts(cache):
+    """The caches of one family as named tuples, for :func:`_cache_fails`:
+    the cache itself (a ``KVCache`` or, for ssm, a ``MambaState``), the
+    enc-dec's self cache and its cross rows, or the hybrid's ``grp``,
+    ``attn`` and ``tail``."""
     from repro_torch.models.attention import KVCache
-    if isinstance(cache, dict):
+    if not isinstance(cache, dict):
+        return [("", cache)]
+    if "cross_k" in cache:
         return [("self", cache["self"]),
                 ("cross", KVCache(cache["cross_k"], cache["cross_v"]))]
-    return [("", cache)]
+    return sorted(cache.items())
 
 
 def family_card_vs_cpu(spec, seed: int, dev) -> tuple:
@@ -3842,7 +3929,8 @@ def family_card_vs_cpu(spec, seed: int, dev) -> tuple:
                 if not errs[-1] <= rel * float(w.abs().max()):
                     fails.append(f"{what} {'decode %d' % (i - 1) if i else 'prefill'}"
                                  f" logits: {errs[-1]}")
-            for (name, gc), (_, wc) in zip(_as_kv(cache), _as_kv(cpu_cache)):
+            for (name, gc), (_, wc) in zip(_cache_parts(cache),
+                                           _cache_parts(cpu_cache)):
                 fails += _cache_fails(gc, wc, dtype, f"{what} {name}", ())
             r.update(max_abs_err=errs)
         res[what] = r
@@ -3880,26 +3968,105 @@ def capture_whisper(params, cfg, batch) -> dict:
     return dict(enc=enc, cross=(q, k, v), n_rep=cfg.n_heads // cfg.n_kv_heads)
 
 
+def capture_zamba(params, cfg, toks) -> dict:
+    """What K5 gets in the first shared-attention occurrence of one zamba2
+    prefill of ``toks`` [B, S]: the first group's mamba2 layers, then the
+    shared block's normed input through its q, k, v projections and
+    rotary (the LoRA joins after the attention)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import blocks as BLK
+    from repro_torch.models import lm
+    from repro_torch.models.layers import apply_norm
+    x = params["embed"][toks.long()]
+    B, S = toks.shape
+    pos = torch.arange(S, dtype=torch.int32, device=toks.device).expand(B, S)
+    mg = lm.layer_params(params["mamba_grp"], 0)
+    for j in range(cfg.shared_attn_period - 1):
+        x, _ = BLK.block_forward(lm.layer_params(mg, j), cfg, "mamba2", x,
+                                 pos, A.CAUSAL)
+    sh = params["shared"]
+    h = apply_norm(x, sh["ln1"], cfg.norm, cfg.norm_eps)
+    q, k, v = A._qkv(sh["attn"], cfg, h, pos)
+    return dict(q=q, k=k, v=v, n_rep=cfg.n_heads // cfg.n_kv_heads,
+                scale=cfg.hd ** -0.5, mask=A.CAUSAL)
+
+
+def mamba_mixer_timing(params, cfg, toks, runs: int) -> dict:
+    """Layer 0's mamba mixer on its real normed input from ``toks`` [B, S],
+    CUDA events (median of ``runs``): the whole ``mamba1_forward`` and its
+    three parts, ``mamba1_inputs`` (in_proj, the conv, x_proj, dt_w),
+    ``mamba1_scan`` (the chunked selective scan) and ``mamba1_output`` (D,
+    the gate, out_proj), with the products' FLOP; for mamba2 the whole
+    ``mamba2_forward``."""
+    from repro_torch.models import lm
+    from repro_torch.models import mamba as M
+    from repro_torch.models.layers import apply_norm
+    seg = (params["seg0"] if cfg.family == "ssm"
+           else lm.layer_params(params["mamba_grp"], 0))
+    pl = lm.layer_params(seg, 0)
+    mx = pl["mixer"]
+    B, S = toks.shape
+    d, di = cfg.d_model, cfg.d_inner
+    h = apply_norm(params["embed"][toks.long()], pl["ln1"], cfg.norm,
+                   cfg.norm_eps)
+    if cfg.ssm_version == 2:
+        ms, _ = _event_ms(lambda: M.mamba2_forward(mx, cfg, h), runs)
+        return dict(mixer="mamba2", tokens=B * S, mixer_ms=ms)
+    ins = M.mamba1_inputs(mx, cfg, h)
+    y, hT = M.mamba1_scan(cfg, mx["A_log"], *ins[:4])
+    out = dict(mixer="mamba1", tokens=B * S, chunk=256,
+               mixer_ms=_event_ms(lambda: M.mamba1_forward(mx, cfg, h),
+                                  runs)[0],
+               inputs_ms=_event_ms(lambda: M.mamba1_inputs(mx, cfg, h),
+                                   runs)[0],
+               scan_ms=_event_ms(lambda: M.mamba1_scan(
+                   cfg, mx["A_log"], *ins[:4]), runs)[0],
+               output_ms=_event_ms(lambda: M.mamba1_output(
+                   mx, cfg, h, y, ins, hT), runs)[0])
+    flops = 2 * B * S * (d * 2 * di + di * (cfg.dtr + 2 * cfg.ssm_state)
+                         + cfg.dtr * di + di * d)
+    out.update(projection_flops=flops,
+               scan_share=out["scan_ms"] / out["mixer_ms"],
+               scan_state_bytes_a_chunk=4 * B * 256 * di * cfg.ssm_state)
+    emit({"metric": "mamba1_layer0_ms", **out})
+    return out
+
+
+def k5_prefill_calls(cfg, S: int, T: int) -> int:
+    """K5 launches of one prefill of S tokens (T encoder frames): each
+    attention call whose S·T passes ``FLASH_THRESH``."""
+    from repro_torch.models.attention import FLASH_THRESH
+    if cfg.family == "encdec":
+        return (cfg.n_enc_layers * (T * T > FLASH_THRESH)
+                + cfg.n_layers * (S * S > FLASH_THRESH)
+                + cfg.n_layers * (S * T > FLASH_THRESH))
+    return k5_calls(cfg) * (S * S > FLASH_THRESH)
+
+
 def serve_family(spec, seed: int, dev, runs: int) -> dict:
-    """A vlm or enc-dec model at ``spec``'s width through ``lm.prefill``
-    (``spec["prefills"]`` of ``spec["batch"]`` requests: one untimed
-    warm-up, then the median of the rest) and ``spec["steps"]`` greedy
-    ``lm.decode_step`` calls: K5 launches (:func:`k5_calls` a prefill),
-    finite logits of the right shape; K5 against its plain version on
-    layer 0's real q, k, v (for whisper the encoder's on its first and last
-    1,024 rows, and the cross attention's) and, on the card, timed there
-    beside ``scaled_dot_product_attention`` with the same mask; decode
-    against forward."""
+    """A vlm, enc-dec, ssm or hybrid model at ``spec``'s width through
+    ``lm.prefill`` (``spec["prefills"]`` of ``spec["batch"]`` requests: one
+    untimed warm-up, then the median of the rest) and ``spec["steps"]``
+    greedy ``lm.decode_step`` calls: K5 launches
+    (:func:`k5_prefill_calls` a prefill; none for ssm), finite logits of
+    the right shape; K5 against its plain version on the real q, k, v of
+    layer 0 (for whisper the encoder's on its first and last 1,024 rows,
+    and the cross attention's; for zamba2 the first shared-attention
+    occurrence's) and, on the card, timed there beside
+    ``scaled_dot_product_attention`` with the same mask; for ssm and
+    hybrid, layer 0's mamba mixer timed (:func:`mamba_mixer_timing`);
+    decode against forward."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as k5
     from repro_torch.models import lm
-    from repro_torch.models.attention import FLASH_THRESH, FULL
+    from repro_torch.models.attention import FULL
     on_card = dev.type == "cuda"
     cfg = get_config(spec["arch"], smoke=spec["smoke"])
     t0 = time.perf_counter()
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
     _sync(dev)
     init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
     B, n, steps, off = spec["batch"], spec["text"], spec["steps"], _offset(cfg)
     batch = _inputs(cfg, B, n, spec.get("frames", 0), seed, dev)
     fails = []
@@ -3930,11 +4097,7 @@ def serve_family(spec, seed: int, dev, runs: int) -> dict:
     launches = k5.LAUNCHES
     peak = torch.cuda.max_memory_allocated() if on_card else None
     S = off + n
-    T = spec.get("frames", S)
-    per = (cfg.n_layers * (S * S > FLASH_THRESH) if cfg.family == "vlm" else
-           cfg.n_enc_layers * (T * T > FLASH_THRESH)
-           + cfg.n_layers * (S * S > FLASH_THRESH)
-           + cfg.n_layers * (S * T > FLASH_THRESH))
+    per = k5_prefill_calls(cfg, S, spec.get("frames", S))
     want = spec["prefills"] * per
     if on_card and (pre_launches, launches) != (want, want):
         fails.append(f"K5 launches {pre_launches} in the prefills, {launches}"
@@ -3965,7 +4128,17 @@ def serve_family(spec, seed: int, dev, runs: int) -> dict:
                                            mask=cap["mask"],
                                            metric="k5_vlm_long_ms")
                 del cap, lb
-        else:
+        elif cfg.family == "hybrid":
+            cap = capture_zamba(params, cfg, batch["tokens"])
+            qkv = (cap["q"], cap["k"], cap["v"])
+            real["occurrence0"] = k5_vs_plain(*qkv, cap["mask"], cap["n_rep"],
+                                              cap["scale"])
+            if on_card:
+                timing["served"] = k5_timing(*qkv, cap["n_rep"], runs,
+                                             mask=cap["mask"],
+                                             metric="k5_zamba_ms")
+            del cap, qkv
+        elif cfg.family == "encdec":
             cap = capture_whisper(params, cfg, batch)
             q, k, v = cap["enc"]
             got = k5.flash_sdpa(q, k, v, FULL, cap["n_rep"], cfg.hd ** -0.5)
@@ -3982,6 +4155,9 @@ def serve_family(spec, seed: int, dev, runs: int) -> dict:
                                             mask=FULL,
                                             metric="k5_whisper_cross_ms")
             del cap, q, k, v
+        if on_card and cfg.family in ("ssm", "hybrid"):
+            timing["mixer"] = mamba_mixer_timing(params, cfg,
+                                                 batch["tokens"], runs)
     k5.LAUNCHES = launches              # the checks' launches do not count
     for name, r in real.items():
         if not r["max_err_over_tol"] <= 1.0:
@@ -3989,11 +4165,22 @@ def serve_family(spec, seed: int, dev, runs: int) -> dict:
     _free(dev)
     pb = _inputs(cfg, 1, spec["parity"]["text"], spec.get("frames", 0),
                  seed + 2, dev)
-    dvf, f = family_decode_vs_forward(params, cfg, pb, spec["parity"]["steps"])
+    p_steps = spec["parity"]["steps"]
+    drift = None
+    if spec["parity"].get("float32"):
+        # the bf16 model's drift is measured, not held to the bound; the
+        # check runs on the same draws in float32 (see SERVE_MAMBA)
+        drift = bf16_decode_drift(params, cfg, pb, p_steps)
+        del params
+        _free(dev)
+        cfg = dataclasses.replace(cfg, param_dtype="float32")
+        params = lm.init_params(cfg, torch.Generator(device=dev)
+                                .manual_seed(seed))
+    dvf, f = family_decode_vs_forward(params, cfg, pb, p_steps)
+    dvf["param_dtype"] = cfg.param_dtype
     fails += f
     return {"arch": cfg.name, "layers": cfg.n_layers,
-            "enc_layers": cfg.n_enc_layers,
-            "params": sum(t.numel() for t in _leaves(params)),
+            "enc_layers": cfg.n_enc_layers, "params": n_params,
             "init_s": init_s, "batch": B, "prompt_len": S,
             "frames": spec.get("frames"),
             "prefill_ms": statistics.median(prefill_ms[1:]),
@@ -4004,7 +4191,10 @@ def serve_family(spec, seed: int, dev, runs: int) -> dict:
             "new_tokens_per_s": B * steps / (sum(step_ms) / 1e3),
             "k5_launches": launches, "expected_k5_launches": want,
             "peak_bytes": peak, "k5_real": real, "k5_tolerance": K5_BOUND,
-            "k5_timing": timing, "decode_vs_forward": dvf, "fails": fails}
+            "k5_timing": timing, "decode_vs_forward": dvf,
+            "bf16_decode_drift": drift, "fails": fails,
+            **({"k5": "no attention on this path: K5 launches 0"}
+               if cfg.family == "ssm" else {})}
 
 
 def _serve_family(phase, seed, dev, runs, spec):
@@ -4063,6 +4253,38 @@ def rehearse_serve_whisper(seed=0):
     (:data:`REHEARSAL_WHISPER`; no kernel runs). Returns the phase line."""
     return _serve_family("serve-whisper", seed, torch.device("cpu"), 0,
                          REHEARSAL_WHISPER)
+
+
+def run_serve_mamba(*, seed, runs=25):
+    """The ``serve-mamba`` phase on the card (:data:`SERVE_MAMBA`):
+    falcon-mamba-7b served at full width (:func:`serve_family`; no K5 on
+    this path), then the SMOKE model on the card against the CPU and a
+    SMOKE train step. Returns the phase line."""
+    return _serve_family("serve-mamba", seed, torch.device("cuda"), runs,
+                         SERVE_MAMBA)
+
+
+def rehearse_serve_mamba(seed=0):
+    """The ``serve-mamba`` phase's checks on the CPU at SMOKE size
+    (:data:`REHEARSAL_MAMBA`). Returns the phase line."""
+    return _serve_family("serve-mamba", seed, torch.device("cpu"), 0,
+                         REHEARSAL_MAMBA)
+
+
+def run_serve_zamba(*, seed, runs=25):
+    """The ``serve-zamba`` phase on the card (:data:`SERVE_ZAMBA`):
+    zamba2-7b served at full width (:func:`serve_family`; K5 at head dim
+    112 once an occurrence a prefill), then the SMOKE model on the card
+    against the CPU and a SMOKE train step. Returns the phase line."""
+    return _serve_family("serve-zamba", seed, torch.device("cuda"), runs,
+                         SERVE_ZAMBA)
+
+
+def rehearse_serve_zamba(seed=0):
+    """The ``serve-zamba`` phase's checks on the CPU at SMOKE size
+    (:data:`REHEARSAL_ZAMBA`; no kernel runs). Returns the phase line."""
+    return _serve_family("serve-zamba", seed, torch.device("cpu"), 0,
+                         REHEARSAL_ZAMBA)
 
 
 # -------------------------------------------------------------------- main
@@ -4180,11 +4402,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     v_out = run_serve_vlm(seed=args.seed, runs=args.runs)
     w_out = run_serve_whisper(seed=args.seed, runs=args.runs)
-    k5_checks += [*v_out["k5_real"].values(), *w_out["k5_real"].values()]
+    torch.cuda.empty_cache()
+    mb_out = run_serve_mamba(seed=args.seed, runs=args.runs)
+    torch.cuda.empty_cache()
+    z_out = run_serve_zamba(seed=args.seed, runs=args.runs)
+    k5_checks += [*v_out["k5_real"].values(), *w_out["k5_real"].values(),
+                  *z_out["k5_real"].values()]
     k5_rows = {"vlm_256_256": v_out["k5_timing"]["served"],
                "vlm_256_256_8k": v_out["k5_timing"]["long"],
                "whisper_encoder_64_64": w_out["k5_timing"]["encoder"],
-               "whisper_cross_64_64": w_out["k5_timing"]["cross"]}
+               "whisper_cross_64_64": w_out["k5_timing"]["cross"],
+               "zamba_112": z_out["k5_timing"]["served"]}
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "fused_descent", "route": "cuda",
@@ -4233,15 +4461,19 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
         "launches": s_out["launches"]["k5"] + t_out["k5_launches"]
         + m_out["llama4"]["launches"]["k5"] + m_out["deepseek"]["k5_launches"]
-        + v_out["k5_launches"] + w_out["k5_launches"],
+        + v_out["k5_launches"] + w_out["k5_launches"]
+        + mb_out["k5_launches"] + z_out["k5_launches"],
         "launches_by_path": {
             "serve": s_out["launches"]["k5"], "train": t_out["k5_launches"],
             "serve-moe llama4": m_out["llama4"]["launches"]["k5"],
             "serve-moe deepseek": m_out["deepseek"]["k5_launches"],
             "serve-vlm": v_out["k5_launches"],
-            "serve-whisper": w_out["k5_launches"]},
-        "builds": "bf16 (q/k, v) head dims padded to (64, 64), (128, 128), "
-                  "(192, 128) or (256, 256); float32 q/k and v up to 256",
+            "serve-whisper": w_out["k5_launches"],
+            "serve-mamba": mb_out["k5_launches"],
+            "serve-zamba": z_out["k5_launches"]},
+        "builds": "bf16 (q/k, v) head dims padded to (64, 64), (128, 128) "
+                  "(zamba2's 112 zero-padded by TMA), (192, 128) or "
+                  "(256, 256); float32 q/k and v up to 256",
         "max_abs_err": max(r["max_abs_err"] for r in k5_checks),
         "max_err_over_tol": max(r["max_err_over_tol"] for r in k5_checks),
         "tolerance": K5_BOUND,

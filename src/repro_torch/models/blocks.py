@@ -1,32 +1,41 @@
 """Decoder block wiring — the port's counterpart of ``repro.models.blocks``.
 
-A block = pre-norm mixer + residual + pre-norm FFN + residual. The port
-has the decoder kinds of the dense, vlm and MoE families: the mixer GQA
-attention (``"dense"``, ``"gqa+..."``) or MLA (``"mla+..."``), the FFN a
+A block = pre-norm mixer + residual (+ pre-norm FFN + residual when the
+family has a separate FFN). The port has every kind of the reference: the
+mixer GQA attention (``"dense"``, ``"gqa+..."``), MLA (``"mla+..."``) or a
+mamba mixer (``"mamba1"``, ``"mamba2"``: no FFN, no aux loss); the FFN a
 dense MLP (``"dense"``, ``"...+mlp"``; ``"mla+mlp"`` takes ``d_ff_dense``
 when it is set) or MoE (``"...+moe"``, whose aux loss ``block_forward``
-returns); and the encoder-decoder's blocks, whose parameters
-:func:`enc_block_params` and :func:`dec_block_params` make and whose
-layers ``lm.py`` runs itself, as the reference's does (self attention, then
-for the decoder cross attention, then the MLP). The plan
-:func:`block_kinds` is whole; the mamba and hybrid kinds raise
-``NotImplementedError`` naming their ROADMAP item.
+returns); zamba2's one shared attention+MLP block with a LoRA on ``wq``
+per occurrence (:func:`shared_block_params`, :func:`shared_lora_params`,
+:func:`shared_block_forward`, :func:`shared_block_prefill`,
+:func:`shared_block_decode`); and the encoder-decoder's blocks, whose
+parameters :func:`enc_block_params` and :func:`dec_block_params` make. The
+``"hybrid"`` and ``"encdec"`` kinds of :func:`block_kinds` are assembled
+by ``lm.py`` itself, as the reference's are, and raise ``ValueError`` here.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
+
+import torch
 
 from . import attention as A
+from . import mamba as M
 from . import mla as MLA
 from . import moe as MOE
 from .config import ModelConfig
-from .layers import Params, apply_norm, mlp_apply, mlp_params, norm_params
+from .layers import (Params, apply_norm, dense_init, mlp_apply, mlp_params,
+                     norm_params)
 
-__all__ = ["PORTED_KINDS", "block_kinds", "block_params", "enc_block_params",
+__all__ = ["block_kinds", "block_params", "enc_block_params",
            "dec_block_params", "block_forward", "block_prefill",
-           "block_decode"]
+           "block_decode", "shared_block_params", "shared_lora_params",
+           "shared_block_forward", "shared_block_prefill",
+           "shared_block_decode"]
 
-PORTED_KINDS = ("dense", "gqa+mlp", "gqa+moe", "mla+mlp", "mla+moe")
+MAMBA = {"mamba1": (M.mamba1_params, M.mamba1_forward, M.mamba1_decode),
+         "mamba2": (M.mamba2_params, M.mamba2_forward, M.mamba2_decode)}
 
 
 def block_kinds(cfg: ModelConfig) -> Tuple[Tuple[str, int], ...]:
@@ -50,12 +59,10 @@ def block_kinds(cfg: ModelConfig) -> Tuple[Tuple[str, int], ...]:
     raise ValueError(f)
 
 
-def _ported(kind: str) -> None:
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet: the mamba and hybrid "
-            f"blocks come with their families (ROADMAP queue 1, \"Modules "
-            f"to port\"); the enc-dec layers run in lm.py")
+def _assembled_in_lm(kind: str) -> None:
+    if kind in ("hybrid", "encdec"):
+        raise ValueError(f"block kind {kind!r} is assembled by lm.py (its "
+                         f"layers are not one homogeneous stack)")
 
 
 def _mixer(p, cfg: ModelConfig, kind: str, h, positions, mask):
@@ -66,8 +73,11 @@ def _mixer(p, cfg: ModelConfig, kind: str, h, positions, mask):
 
 # ------------------------------------------------------------------ params
 def block_params(gen, cfg: ModelConfig, kind: str) -> Params:
-    _ported(kind)
+    _assembled_in_lm(kind)
     d, dtype = cfg.d_model, cfg.dtype
+    if kind in MAMBA:
+        return {"ln1": norm_params(gen, d, cfg.norm, dtype),
+                "mixer": MAMBA[kind][0](gen, cfg)}
     p: Params = {"ln1": norm_params(gen, d, cfg.norm, dtype),
                  "attn": (MLA.mla_params(gen, cfg) if kind.startswith("mla")
                           else A.attn_params(gen, cfg)),
@@ -113,8 +123,11 @@ def _ffn(p, cfg: ModelConfig, h):
 def block_forward(p: Params, cfg: ModelConfig, kind: str, x, positions,
                   mask):
     """Training/prefill-compute path (no cache). Returns (x, aux_loss)."""
-    _ported(kind)
+    _assembled_in_lm(kind)
     h = apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
+    if kind in MAMBA:
+        y, _ = MAMBA[kind][1](p["mixer"], cfg, h)
+        return x + y, 0.0
     x = x + _mixer(p, cfg, kind, h, positions, mask)
     y, aux = _ffn(p, cfg, apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps))
     return x + y, aux
@@ -123,9 +136,13 @@ def block_forward(p: Params, cfg: ModelConfig, kind: str, x, positions,
 def block_prefill(p, cfg: ModelConfig, kind: str, x, positions, mask,
                   cache_len: int):
     """Like block_forward but also emits this layer's decode cache (a
-    ``KVCache``, or an ``MLACache`` for the MLA kinds)."""
-    _ported(kind)
+    ``KVCache``, an ``MLACache`` for the MLA kinds, the final
+    ``MambaState`` for the mamba kinds)."""
+    _assembled_in_lm(kind)
     h = apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
+    if kind in MAMBA:
+        y, cache = MAMBA[kind][1](p["mixer"], cfg, h)
+        return x + y, cache
     if kind.startswith("mla"):
         y, cache = MLA.mla_prefill(p["attn"], cfg, h, positions, mask,
                                    cache_len)
@@ -139,9 +156,15 @@ def block_prefill(p, cfg: ModelConfig, kind: str, x, positions, mask,
 
 def block_decode(p, cfg: ModelConfig, kind: str, x, pos, cache):
     """One-token step. ``cache`` is this layer's cache slice, updated in
-    place; returns (x, cache)."""
-    _ported(kind)
+    place (a mamba layer's new conv window and ssm state are copied into
+    it); returns (x, cache)."""
+    _assembled_in_lm(kind)
     h = apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
+    if kind in MAMBA:
+        y, new = MAMBA[kind][2](p["mixer"], cfg, h, cache)
+        for t, n in zip(cache, new):
+            t.copy_(n)
+        return x + y, cache
     if kind.startswith("mla"):
         y, cache = MLA.mla_decode(p["attn"], cfg, h, pos, cache)
     else:
@@ -149,3 +172,57 @@ def block_decode(p, cfg: ModelConfig, kind: str, x, pos, cache):
     x = x + y
     y, _ = _ffn(p, cfg, apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps))
     return x + y, cache
+
+
+# ------------------------------------------------------------- zamba2 shared
+def shared_block_params(gen, cfg: ModelConfig) -> Params:
+    """The single shared attention+MLP block (zamba2)."""
+    return block_params(gen, cfg, "dense")
+
+
+def shared_lora_params(gen, cfg: ModelConfig) -> Params:
+    """One occurrence's LoRA on the shared block's wq: ``qa`` [d, r] and
+    ``qb`` [r, H*hd], zero as the reference starts it."""
+    r = cfg.shared_lora_rank
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.hd
+    return {"qa": dense_init(gen, d, r, dtype=cfg.dtype),
+            "qb": torch.zeros((r, H * hd), dtype=cfg.dtype, device=gen.device)}
+
+
+def _lora_out(p, lora: Optional[Params], h, y):
+    """The attention output ``y`` plus the occurrence's LoRA correction on
+    the normed input ``h``, joined through the output projection."""
+    if lora is None:
+        return y
+    dq = (h @ lora["qa"]) @ lora["qb"]
+    return y + A.proj_out(dq, p["attn"]["wo"])
+
+
+def _shared_mlp(p, cfg: ModelConfig, x):
+    return x + mlp_apply(p["mlp"], apply_norm(x, p["ln2"], cfg.norm,
+                                              cfg.norm_eps), cfg.mlp)
+
+
+def shared_block_forward(p: Params, lora: Optional[Params], cfg: ModelConfig,
+                         x, positions, mask):
+    h = apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
+    y = A.attn_forward(p["attn"], cfg, h, positions, mask)
+    return _shared_mlp(p, cfg, x + _lora_out(p, lora, h, y))
+
+
+def shared_block_prefill(p: Params, lora: Optional[Params], cfg: ModelConfig,
+                         x, positions, mask, cache_len: int):
+    """:func:`shared_block_forward` that also returns the occurrence's
+    ``KVCache`` padded to ``cache_len`` (the reference writes it out inside
+    ``lm._hybrid_prefill``)."""
+    h = apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
+    y, cache = A.attn_prefill(p["attn"], cfg, h, positions, mask, cache_len)
+    return _shared_mlp(p, cfg, x + _lora_out(p, lora, h, y)), cache
+
+
+def shared_block_decode(p, lora, cfg: ModelConfig, x, pos, cache):
+    """One-token step of an occurrence; its k/v row is written into
+    ``cache`` in place."""
+    h = apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
+    y, cache = A.attn_decode(p["attn"], cfg, h, pos, cache)
+    return _shared_mlp(p, cfg, x + _lora_out(p, lora, h, y)), cache

@@ -14,9 +14,10 @@ bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy arrays, which
 ``router_bias`` buffer, stacked experts, the ``mtp`` subtree) are such
 trees too, and so are the vlm's ``proj`` and the enc-dec's ``enc`` and
 ``dec_pos``. :func:`cache_from_numpy` and :func:`cache_to_numpy` carry a
-decode cache (the reference's ``KVCache`` or ``MLACache``, a named tuple
-of arrays, or the enc-dec's dict of a ``KVCache`` and two arrays) across
-to the port's of the same fields and back.
+decode cache (the reference's ``KVCache``, ``MLACache`` or ``MambaState``,
+a named tuple of arrays; the enc-dec's dict of a ``KVCache`` and two
+arrays; the hybrid's dict of ``MambaState``s and a ``KVCache``) across to
+the port's of the same fields and back.
 """
 from __future__ import annotations
 
@@ -62,24 +63,33 @@ def params_to_numpy(params: Params) -> dict:
             for k, v in params.items()}
 
 
-def cache_from_numpy(cache, device):
-    """A reference decode cache (``KVCache(k, v)`` or ``MLACache(ckv,
-    krope)``, arrays, or the enc-dec's ``{"self": KVCache, "cross_k",
-    "cross_v"}``) -> the port's cache of those fields, tensors on
-    ``device``, bit for bit."""
+def _cache_kinds() -> dict:
+    """The port's cache named tuples by their fields."""
     from .attention import KVCache
+    from .mamba import MambaState
     from .mla import MLACache
+    return {kind._fields: kind for kind in (KVCache, MLACache, MambaState)}
+
+
+def cache_from_numpy(cache, device):
+    """A reference decode cache (``KVCache(k, v)``, ``MLACache(ckv,
+    krope)`` or ``MambaState(conv, ssm)`` of arrays, or a dict of such
+    tuples and arrays: the enc-dec's ``{"self": KVCache, "cross_k",
+    "cross_v"}``, the hybrid's ``{"grp": MambaState, "attn": KVCache,
+    "tail": MambaState}``) -> the port's cache of those fields, tensors on
+    ``device``, bit for bit. The tuple's fields say which it is."""
     if isinstance(cache, Mapping):
         return {k: cache_from_numpy(v, device) if hasattr(v, "_fields")
                 else _tensor(np.asarray(v), device) for k, v in cache.items()}
-    kind = MLACache if hasattr(cache, "ckv") else KVCache
+    kind = _cache_kinds()[tuple(cache._fields)]
     return kind(*(_tensor(np.asarray(a), device) for a in cache))
 
 
 def cache_to_numpy(cache) -> dict:
-    """A port cache (``KVCache`` or ``MLACache``) -> {field: numpy array}
-    (bf16 as ``ml_dtypes.bfloat16``); the enc-dec's dict -> the same keys,
-    ``"self"`` as such a dict."""
+    """A port cache (``KVCache``, ``MLACache`` or ``MambaState``) ->
+    {field: numpy array} (bf16 as ``ml_dtypes.bfloat16``); the enc-dec's
+    and the hybrid's dicts -> the same keys, each named tuple as such a
+    dict."""
     if isinstance(cache, Mapping):
         return {k: cache_to_numpy(v) if hasattr(v, "_fields") else _array(v)
                 for k, v in cache.items()}

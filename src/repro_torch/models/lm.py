@@ -4,10 +4,15 @@ families (GQA or MLA attention; DeepSeek's MTP head), the vlm family
 (PaliGemma: image patches projected and prepended to the text under a
 prefix-LM mask) and the enc-dec family (whisper: an encoder over stub
 frame embeddings with learned positions, :func:`encode`, and a decoder
-with cross attention).
+with cross attention), the ssm family (falcon-mamba: a stack of mamba1
+layers) and the hybrid family (zamba2: groups of mamba2 layers, each group
+followed by the one shared attention+MLP block with its occurrence's LoRA,
+then a tail of mamba2 layers).
 
 Parameters are a dict of tensors keyed and shaped as the reference's
-pytree: per-segment stacks ``p["seg0"][...]`` of shape ``[n_layers, ...]``.
+pytree: per-segment stacks ``p["seg0"][...]`` of shape ``[n_layers, ...]``
+(hybrid: ``mamba_grp`` ``[n_groups, period - 1, ...]``, ``mamba_tail``,
+``shared``, ``lora`` ``[n_groups, ...]``).
 The reference's ``lax.scan`` over a stack becomes a Python loop over its
 layers, and ``jax.jit`` plain eager calls. :func:`forward` is the training
 forward: it runs under autograd (``train.losses.loss_fn`` differentiates
@@ -21,8 +26,10 @@ inference calls (run under ``torch.inference_mode()``); their cache is a
 ``KVCache`` of ``[n_layers, ...]`` stacks, an ``MLACache`` for MLA, or for
 enc-dec the reference's dict ``{"self": KVCache, "cross_k", "cross_v"}``
 (the cross attention's bf16 k and v of every layer over the encoder's
-frames), and each layer writes its row in place. The ssm and hybrid
-families raise ``NotImplementedError`` naming their ROADMAP item.
+frames), for ssm a ``MambaState`` of ``[n_layers, ...]`` stacks, for
+hybrid the reference's dict ``{"grp": MambaState [n_groups, period - 1,
+...], "attn": KVCache [n_groups, ...], "tail": MambaState}``; each layer
+writes its rows in place.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from . import attention as A
 from . import blocks as BLK
+from . import mamba as M
 from . import mla as MLA
 from .config import ModelConfig
 from .layers import (Params, apply_norm, dense_init, embed_init, mlp_apply,
@@ -42,17 +50,6 @@ from .layers import (Params, apply_norm, dense_init, embed_init, mlp_apply,
 
 __all__ = ["init_params", "unembed", "forward", "encode", "mtp_logits",
            "init_cache", "decode_step", "prefill", "layer_params"]
-
-PORTED_FAMILIES = ("dense", "moe", "vlm", "encdec")
-
-
-def _ported_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (the "
-            f"dense, moe, vlm and enc-dec families are); the ssm and hybrid "
-            f"families come next (ROADMAP queue 1, \"Modules to port\")")
-
 
 def layer_params(seg: Params, i: int) -> Params:
     """Layer ``i`` of a stacked segment: the same dict of views ``[i]``."""
@@ -87,17 +84,46 @@ def _stack_layers(make, n: int) -> Params:
     return seg
 
 
+def _split_lead(tree, n: int, m: int):
+    """Every leaf ``[n * m, ...]`` viewed as ``[n, m, ...]``."""
+    return {k: _split_lead(v, n, m) if isinstance(v, dict)
+            else v.view((n, m) + tuple(v.shape[1:])) for k, v in tree.items()}
+
+
+def _hybrid_plan(cfg: ModelConfig):
+    """zamba2's layout: (groups = shared-block occurrences, mamba layers a
+    group, mamba layers in the tail)."""
+    n_sh = cfg.hybrid_pattern().count("a")
+    return n_sh, cfg.shared_attn_period - 1, \
+        cfg.n_layers - n_sh * cfg.shared_attn_period
+
+
+def _hybrid_params(p: Params, cfg: ModelConfig, gen) -> Params:
+    n_grp, grp_m, n_tail = _hybrid_plan(cfg)
+    mamba = lambda: BLK.block_params(gen, cfg, "mamba2")
+    p["mamba_grp"] = _split_lead(_stack_layers(mamba, n_grp * grp_m),
+                                 n_grp, grp_m)
+    if n_tail:
+        p["mamba_tail"] = _stack_layers(mamba, n_tail)
+    p["shared"] = BLK.shared_block_params(gen, cfg)
+    if cfg.shared_lora_rank:
+        p["lora"] = _stack_layers(lambda: BLK.shared_lora_params(gen, cfg),
+                                  n_grp)
+    return p
+
+
 # ===================================================================== init
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random parameters drawn from ``gen``, on ``gen``'s device; the same
     keys, shapes and dtypes as the reference's ``init_params`` (the numbers
     differ: another generator)."""
-    _ported_family(cfg)
     d, dtype = cfg.d_model, cfg.dtype
     p: Params = {"embed": embed_init(gen, cfg.vocab, d, dtype),
                  "final_norm": norm_params(gen, d, cfg.norm, dtype)}
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, d, cfg.vocab, dtype=dtype)
+    if cfg.family == "hybrid":
+        return _hybrid_params(p, cfg, gen)
     if cfg.family == "encdec":
         p["enc"] = {
             "proj": dense_init(gen, cfg.frontend_dim, d, dtype=dtype),
@@ -186,7 +212,6 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict):
     """-> (logits [B,S,V], aux_loss (float32 scalar, the sum over the MoE
     layers), hidden [B,S,d]). For vlm, S counts the image patches first;
     enc-dec takes ``batch["frames"]`` through :func:`encode`."""
-    _ported_family(cfg)
     if cfg.family == "encdec":
         return _forward_encdec(p, cfg, batch)
     tokens = batch["tokens"]
@@ -196,14 +221,41 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict):
     positions = _positions(B, S, x.device)
     mask = A.MaskSpec("causal", cfg.window, prefix_len)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, (kind, n) in enumerate(BLK.block_kinds(cfg)):
-        for pl in _unbind_layers(p[f"seg{i}"], n):
-            def body(h, pl=pl, kind=kind):
-                return BLK.block_forward(pl, cfg, kind, h, positions, mask)
-            x, a = _maybe_remat(body, cfg)(x)
-            aux = aux + a
+    if cfg.family == "hybrid":
+        x = _hybrid_forward(p, cfg, x, positions, mask)
+    else:
+        for i, (kind, n) in enumerate(BLK.block_kinds(cfg)):
+            for pl in _unbind_layers(p[f"seg{i}"], n):
+                def body(h, pl=pl, kind=kind):
+                    return BLK.block_forward(pl, cfg, kind, h, positions,
+                                             mask)
+                x, a = _maybe_remat(body, cfg)(x)
+                aux = aux + a
     h = apply_norm(x, p["final_norm"], cfg.norm, cfg.norm_eps)
     return unembed(p, cfg, h), aux, h
+
+
+def _mamba_stack(seg: Params, n: int, cfg: ModelConfig, x, positions, mask):
+    """``n`` stacked mamba2 layers, each under ``_maybe_remat``."""
+    for pl in _unbind_layers(seg, n):
+        x, _ = _maybe_remat(lambda h, pl=pl: BLK.block_forward(
+            pl, cfg, "mamba2", h, positions, mask), cfg)(x)
+    return x
+
+
+def _hybrid_forward(p: Params, cfg: ModelConfig, x, positions, mask):
+    """zamba2: each group's mamba layers (under ``_maybe_remat``), then the
+    shared block with the group's LoRA (not rematerialized, as in the
+    reference), then the tail."""
+    n_grp, grp_m, n_tail = _hybrid_plan(cfg)
+    loras = (_unbind_layers(p["lora"], n_grp) if "lora" in p
+             else [None] * n_grp)
+    for mg, lg in zip(_unbind_layers(p["mamba_grp"], n_grp), loras):
+        x = _mamba_stack(mg, grp_m, cfg, x, positions, mask)
+        x = BLK.shared_block_forward(p["shared"], lg, cfg, x, positions, mask)
+    if n_tail:
+        x = _mamba_stack(p["mamba_tail"], n_tail, cfg, x, positions, mask)
+    return x
 
 
 def _norm(x, w, cfg: ModelConfig):
@@ -286,8 +338,23 @@ def init_cache(cfg: ModelConfig, B: int, S_max: int, device=None):
     ``[n_layers, B, S_max, n_kv, hd]``, for MLA an ``MLACache`` of
     ``[n_layers, B, S_max, kv_lora]`` and ``[n_layers, B, S_max, rope]``,
     for enc-dec ``{"self": KVCache, "cross_k", "cross_v"}`` with the cross
-    rows ``[n_layers, B, enc_seq, n_kv, hd]``."""
-    _ported_family(cfg)
+    rows ``[n_layers, B, enc_seq, n_kv, hd]``; for ssm a ``MambaState`` of
+    ``[n_layers, B, ...]`` (conv window bf16, ssm state float32), for
+    hybrid ``{"grp": MambaState [n_groups, period - 1, B, ...], "attn":
+    KVCache [n_groups, ...], "tail": MambaState [n_tail, B, ...]}``. The
+    mamba2 states keep the reference's ``init_mamba_state`` shape ``[nh,
+    hp, ds]``, not forward's ``[nh, ds, hp]`` (ROADMAP queue 3)."""
+    if cfg.family == "hybrid":
+        n_grp, grp_m, n_tail = _hybrid_plan(cfg)
+        grp = M.init_mamba_state(cfg, B, n_grp * grp_m, device=device)
+        cache = {"grp": M.MambaState(*(t.view((n_grp, grp_m) + t.shape[1:])
+                                       for t in grp)),
+                 "attn": A.init_kv_cache(cfg, B, S_max, n_grp, device=device)}
+        if n_tail:
+            cache["tail"] = M.init_mamba_state(cfg, B, n_tail, device=device)
+        return cache
+    if cfg.family == "ssm":
+        return M.init_mamba_state(cfg, B, cfg.n_layers, device=device)
     if cfg.family == "encdec":
         return _encdec_cache(cfg, B, S_max, cfg.enc_seq, device)
     if cfg.attention == "mla":
@@ -295,9 +362,16 @@ def init_cache(cfg: ModelConfig, B: int, S_max: int, device=None):
     return A.init_kv_cache(cfg, B, S_max, cfg.n_layers, device=device)
 
 
-def _layer_cache(cache, i: int):
-    """Row ``i`` of a stacked cache (``KVCache`` or ``MLACache``): views."""
+def _layer_cache(cache, *i):
+    """Row ``i`` of a stacked cache (``KVCache``, ``MLACache`` or
+    ``MambaState``; ``i`` one index a stacked dim): views."""
     return type(cache)(*(t[i] for t in cache))
+
+
+def _stack_states(states):
+    """Per-layer states (named tuples of tensors) -> one ``[n, ...]``
+    stack a field."""
+    return type(states[0])(*(torch.stack(f) for f in zip(*states)))
 
 
 # ===================================================================== decode
@@ -306,7 +380,6 @@ def decode_step(p: Params, cfg: ModelConfig, tokens, pos, cache):
     (for vlm counting the image patches). Returns (logits [B, V], cache).
     Each layer's new k/v row is written into ``cache`` in place, and the
     same cache comes back."""
-    _ported_family(cfg)
     x = _embed(p, tokens)[:, None, :]          # [B,1,d]
     if cfg.family == "encdec":
         x = x + p["dec_pos"][pos.long()][:, None]
@@ -316,6 +389,10 @@ def decode_step(p: Params, cfg: ModelConfig, tokens, pos, cache):
                                  pos, _layer_cache(cache["self"], j))
             x = _dec_rest(pl, cfg, x + y, (cache["cross_k"][j],
                                            cache["cross_v"][j]))
+        h = _norm(x, p["final_norm"], cfg)
+        return unembed(p, cfg, h)[:, 0], cache
+    if cfg.family == "hybrid":
+        x = _hybrid_decode(p, cfg, x, pos, cache)
         h = _norm(x, p["final_norm"], cfg)
         return unembed(p, cfg, h)[:, 0], cache
     off = 0
@@ -328,6 +405,25 @@ def decode_step(p: Params, cfg: ModelConfig, tokens, pos, cache):
     return unembed(p, cfg, h)[:, 0], cache
 
 
+def _hybrid_decode(p: Params, cfg: ModelConfig, x, pos, cache):
+    """zamba2's decode step: every layer's rows of ``cache`` (the mamba
+    states, the occurrences' k/v) written in place."""
+    n_grp, grp_m, n_tail = _hybrid_plan(cfg)
+    for g in range(n_grp):
+        mg = layer_params(p["mamba_grp"], g)
+        for j in range(grp_m):
+            x, _ = BLK.block_decode(layer_params(mg, j), cfg, "mamba2", x,
+                                    pos, _layer_cache(cache["grp"], g, j))
+        lg = layer_params(p["lora"], g) if "lora" in p else None
+        x, _ = BLK.shared_block_decode(p["shared"], lg, cfg, x, pos,
+                                       _layer_cache(cache["attn"], g))
+    for j in range(n_tail):
+        x, _ = BLK.block_decode(layer_params(p["mamba_tail"], j), cfg,
+                                "mamba2", x, pos,
+                                _layer_cache(cache["tail"], j))
+    return x
+
+
 # ===================================================================== prefill
 def prefill(p: Params, cfg: ModelConfig, batch: Dict, S_max: int):
     """Process a full prompt; returns (last-token logits [B,V], cache).
@@ -336,11 +432,14 @@ def prefill(p: Params, cfg: ModelConfig, batch: Dict, S_max: int):
     full [B,S,V] tensor never materializes). Each layer's cache goes
     straight into its row of the ``[n_layers, ...]`` cache. vlm prepends
     the projected ``batch["patches"]`` (S_max must hold them); enc-dec
-    runs the encoder over ``batch["frames"]`` first.
+    runs the encoder over ``batch["frames"]`` first. ssm and hybrid stack
+    the mamba layers' final states as the reference does (the conv window
+    in the activations' dtype, mamba2's ssm ``[nh, ds, hp]``).
     """
-    _ported_family(cfg)
     if cfg.family == "encdec":
         return _prefill_encdec(p, cfg, batch, S_max)
+    if cfg.family in ("ssm", "hybrid"):
+        return _prefill_mamba(p, cfg, batch, S_max)
     tokens = batch["tokens"]
     B = tokens.shape[0]
     x, prefix_len = _with_patches(p, cfg, batch, _embed(p, tokens))
@@ -380,5 +479,44 @@ def _prefill_encdec(p: Params, cfg: ModelConfig, batch: Dict, S_max: int):
         cache["cross_k"][j].copy_(kv[0])
         cache["cross_v"][j].copy_(kv[1])
         x = _dec_rest(pl, cfg, x + y, kv)
+    h = _norm(x[:, -1:], p["final_norm"], cfg)
+    return unembed(p, cfg, h)[:, 0], cache
+
+
+def _prefill_mamba(p: Params, cfg: ModelConfig, batch: Dict, S_max: int):
+    """The ssm and hybrid prefill (the reference's ssm branch and
+    ``_hybrid_prefill``)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = _embed(p, tokens)
+    positions = _positions(B, S, x.device)
+    mask = A.MaskSpec("causal", cfg.window, 0)
+
+    def mamba(seg, n, x):
+        states = []
+        for j in range(n):
+            x, st = BLK.block_prefill(layer_params(seg, j), cfg,
+                                      f"mamba{cfg.ssm_version}", x, positions,
+                                      mask, S_max)
+            states.append(st)
+        return x, _stack_states(states)
+
+    if cfg.family == "ssm":
+        x, cache = mamba(p["seg0"], cfg.n_layers, x)
+    else:
+        n_grp, grp_m, n_tail = _hybrid_plan(cfg)
+        attn = A.init_kv_cache(cfg, B, S_max, n_grp, device=x.device)
+        grp = []
+        for g in range(n_grp):
+            x, st = mamba(layer_params(p["mamba_grp"], g), grp_m, x)
+            grp.append(st)
+            lg = layer_params(p["lora"], g) if "lora" in p else None
+            x, kv = BLK.shared_block_prefill(p["shared"], lg, cfg, x,
+                                             positions, mask, S_max)
+            for t, ct in zip(_layer_cache(attn, g), kv):
+                t.copy_(ct)
+        cache = {"grp": _stack_states(grp), "attn": attn}
+        if n_tail:
+            x, cache["tail"] = mamba(p["mamba_tail"], n_tail, x)
     h = _norm(x[:, -1:], p["final_norm"], cfg)
     return unembed(p, cfg, h)[:, 0], cache

@@ -623,12 +623,16 @@ def test_cuda_flash_sdpa_counts_only_launches(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd,causal", ((128, False), (128, True), (64, False)))
+@pytest.mark.parametrize("hd,causal", ((128, False), (128, True), (64, False),
+                                       (112, False), (112, True)))
 def test_cuda_k5_p_layout_with_identity_v(cuda_device, hd, causal):
     """v = the identity makes the output the softmax weights themselves,
     column j the weight of key j: a wrong register layout of p (the A
     operand of p·v) or a wrong descriptor of the transposed v moves
-    weights to other columns and breaks the bound."""
+    weights to other columns and breaks the bound. At 112 (zamba2's head
+    dim, the (128, 128) build zero-padded by TMA) a store of o past column
+    112 would overwrite the next row's first columns, and a padded column
+    reaching the softmax would move every weight."""
     from chip_smoke import _err_over_tol, k5_tolerance
     from repro_torch.kernels.flash_attention import cuda as k5cuda
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -973,6 +977,22 @@ def test_cuda_vlm_and_encdec_train_steps_match_cpu(cuda_device, arch, over,
     the card and on the CPU: chip_smoke's check (d), within
     TRAIN_STEP_BOUND; K5 once an attention call, a microbatch."""
     res, fails = train_parity(0, cuda_device, arch=arch, **over)
+    assert not fails, (fails, res)
+    assert res["k5_launches"] == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,launches", (("falcon-mamba-7b", 0),
+                                           ("zamba2-7b", 2 * 2)))
+def test_cuda_ssm_and_hybrid_train_steps_match_cpu(cuda_device, arch,
+                                                   launches):
+    """One train step of falcon-mamba-7b's SMOKE config (mamba1's chunked
+    scan under autograd, no attention) and of zamba2-7b's (mamba2 and the
+    shared block with its LoRA: K5 at S = 2,304 in each of its 2
+    occurrences) from one state on the card and on the CPU: chip_smoke's
+    check (d), within TRAIN_STEP_BOUND; K5 once an occurrence, a
+    microbatch."""
+    res, fails = train_parity(0, cuda_device, arch=arch)
     assert not fails, (fails, res)
     assert res["k5_launches"] == launches
 

@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``repro_torch``, and not
 ``chip_smoke.py`` nor the port's tools (``tools/chaos_sweep_torch.py``,
-``tools/tree_bench.py``, ``tools/k5_bench.py``), imports JAX or anything
-of the reference package."""
+``tools/tree_bench.py``, ``tools/k5_bench.py``, ``tools/decode_drift.py``),
+imports JAX or anything of the reference package."""
 import ast
 import os
 import pkgutil
@@ -13,7 +13,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")
 FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
-TOOLS = ("chaos_sweep_torch", "tree_bench", "k5_bench")
+TOOLS = ("chaos_sweep_torch", "tree_bench", "k5_bench", "decode_drift")
 
 
 def _port_modules():

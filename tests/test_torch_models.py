@@ -193,10 +193,3 @@ def test_prefill_above_flash_thresh_matches_reference():
     _close(ppl, rpl, TOL["float32"]["logits"], "prefill logits")
     _cache_close(pcache.k, rcache.k, "float32", "prefill cache k")
     _cache_close(pcache.v, rcache.v, "float32", "prefill cache v")
-
-
-@pytest.mark.parametrize("arch", ("falcon-mamba-7b", "zamba2-7b"))
-def test_unported_families_raise_naming_the_roadmap(arch):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plm.init_params(cfg, torch.Generator().manual_seed(0))

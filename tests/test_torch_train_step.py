@@ -59,7 +59,6 @@ from repro_torch.configs.common import smoke_batch
 from repro_torch.kernels.flash_attention import ops as p_ops
 from repro_torch.models import attention as PA
 from repro_torch.models.convert import params_from_numpy
-from repro_torch.train import losses as PL
 from repro_torch.train import optim as O
 from repro_torch.train.train_step import (_grads_of, init_state,
                                           make_eval_step, make_train_step)
@@ -242,17 +241,6 @@ def test_remat_dots_saves_the_matrix_products_only():
     with pytest.raises(ValueError, match="remat"):
         lm._maybe_remat(lambda x: x, dataclasses.replace(
             get_config("yi-9b", smoke=True), remat="some"))
-
-
-def test_unported_losses_raise_naming_the_roadmap():
-    """The families whose forward is not ported raise; deepseek-v3's MTP
-    loss runs since the MoE slice (test_torch_moe.py), the vlm and enc-dec
-    losses since their slice (test_torch_vlm_encdec.py)."""
-    for arch in ("falcon-mamba-7b", "zamba2-7b"):
-        cfg = get_config(arch, smoke=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PL.loss_fn({}, cfg, {"tokens": torch.zeros((1, 4),
-                                                       dtype=torch.int32)})
 
 
 # ------------------------------------------------- flash-attention grads
