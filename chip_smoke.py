@@ -171,7 +171,27 @@ the hybrid family (zamba2-7b, K5 at head dim 112 in its shared attention):
     block with its LoRA, then 3) through ``lm.prefill`` (4 x 3,072 tokens:
     K5 at head dim 112, the (128, 128) build, once an occurrence, 13
     launches a prefill) and 32 decode steps, with the checks of
-    ``serve-mamba`` and K5 on the first occurrence's real q, k, v.
+    ``serve-mamba`` and K5 on the first occurrence's real q, k, v;
+21. ``parallel``: (a) ``param_shardings`` of all ten configurations from
+    ``lm.param_shapes`` on both production meshes (16 x 16 and 2 x 16 x
+    16, abstract), fsdp off and on: every sharded dim divides; parameter
+    GB, GB a device and ZeRO-1 AdamW state GB a device
+    (``opt_state_shardings``); (b) a one-rank NCCL group and the
+    ``DeviceMesh`` of a (1, 1) mesh: the train phase's yi-9b state placed
+    by ``param_shardings`` (every local shard equal to its source) and one
+    ``make_train_step`` step under ``ShardCtx`` whose loss equals the
+    train phase's first-step loss bit for bit; (c) ``pipeline_apply`` on
+    the reference's pipeline configuration (:data:`PIPE_DENSE`: 4 stages x
+    8 layers, d 4,096, ff 16,384, bf16, 8 microbatches of 4 x 1,024
+    tokens) bit for bit against the sequential stages and within
+    :data:`PIPE_DENSE_BOUND` of the whole batch, timed; (d) yi-9b's 8
+    layers as 4 stages of 2 decoder blocks (:data:`PIPE_YI`), forward and
+    backward through the pipeline against the unpipelined stack
+    (:data:`PIPE_YI_BOUND`), K5 once a layer a microbatch;
+22. ``examples``: the four ``examples/*_torch.py`` twins on the card in
+    this process (K1 and K2 launches counted), quickstart's, ycsb_demo's
+    and serve_lm's output equal to their CPU runs', train_lm's loss falling
+    with one restart.
 
 Each phase prints one JSON line. The line before the last holds the
 kernels table; the last line is ``{"ok": true, "device": ...}``. The script
@@ -183,7 +203,9 @@ at 6,000 keys, ``rehearse_train()`` the train phase's at SMOKE size,
 ``rehearse_serve_moe()`` the serve-moe phase's at SMOKE size,
 ``rehearse_serve_vlm()``, ``rehearse_serve_whisper()``,
 ``rehearse_serve_mamba()`` and ``rehearse_serve_zamba()`` the serve-vlm,
-serve-whisper, serve-mamba and serve-zamba phases' at SMOKE size.
+serve-whisper, serve-mamba and serve-zamba phases' at SMOKE size,
+``rehearse_parallel()`` and ``rehearse_examples()`` the parallel and
+examples phases' on the CPU.
 """
 from __future__ import annotations
 
@@ -4289,6 +4311,517 @@ def rehearse_serve_zamba(seed=0):
 
 # -------------------------------------------------------------------- main
 
+# ------------------------------------------------------------------ parallel
+
+# (c) the reference's own pipeline configuration
+# (src/repro/launch/dryrun_pipeline.py:23-33): 4 stages x 8 layers of
+# h + tanh(h @ wi) @ wo, d 4,096, ff 16,384, bf16, 8 microbatches of
+# 4 x 1,024 tokens, forward. wi and wo are drawn with the std of their
+# fan-in.
+PIPE_DENSE = dict(n_stages=4, layers_per_stage=8, d=4096, ff=16384,
+                  n_micro=8, mb=4, seq=1024)
+REHEARSAL_PIPE_DENSE = dict(n_stages=4, layers_per_stage=2, d=64, ff=256,
+                            n_micro=8, mb=2, seq=16)
+PIPE_DENSE_BOUND = (
+    "the pipeline equal bit for bit to the stages applied in sequence "
+    "microbatch by microbatch; against a float32 evaluation of the same "
+    "bf16 weights and input, its relative rms error at most 2 x the "
+    "whole-batch bf16 evaluation's + 2^-9")
+# (d) yi-9b's 8 full-width layers (the train phase's configuration) as 4
+# stages of 2 decoder blocks, a batch of 4 x 4,096 tokens in 4
+# microbatches: forward and backward of sum(y * G) for a fixed G.
+PIPE_YI = dict(n_stages=4, n_layers=8, batch=4, seq=4096, n_micro=4)
+REHEARSAL_PIPE_YI = dict(n_stages=4, n_layers=8, batch=4, seq=64, n_micro=4,
+                         smoke=True)
+PIPE_YI_BOUND = (
+    "against the unpipelined block stack on the whole batch, with the "
+    "train phase's tolerances (TRAIN_STEP_BOUND): the functional within "
+    "2e-3 relative (the loss's), the output's rms difference within 2e-3 of "
+    "its rms, and for the grad of x and each stage's wq grad the norm of "
+    "the difference within 3e-2 of the norm (the grad norm's)")
+
+
+def _ways(entry, sizes) -> int:
+    """How many ways a spec entry splits its dim."""
+    from repro_torch.parallel.sharding import spec_names
+    k = 1
+    for a in spec_names(entry):
+        k *= sizes[a]
+    return k
+
+
+def parallel_specs() -> tuple:
+    """(a) ``param_shardings`` of every configuration, from
+    ``lm.param_shapes`` (inside ``state_template``) only, on both
+    production meshes with fsdp off and on: every sharded dim must divide
+    (``tests/test_sharding.py::test_all_arch_param_shardings_build``'s
+    check, here for the ZeRO-1 AdamW state's specs too); the parameter GB,
+    GB a device and the ZeRO-1 AdamW state's GB a device
+    (``opt_state_shardings``). Returns (rows, fails)."""
+    import torch.utils._pytree as pytree
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.train import optim as O
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train.train_step import state_template
+    rows, fails = [], []
+    meshes = [make_production_mesh(multi_pod=m) for m in (False, True)]
+    for arch in ARCH_IDS:
+        tpl = state_template(get_config(arch), O.OptConfig())
+        params, opt = tpl["params"], tpl["opt"]
+        for mesh in meshes:
+            sizes = mesh.shape
+            for fsdp in (False, True):
+                ps = SH.param_shardings(params, mesh, fsdp=fsdp)
+                os_ = O.opt_state_shardings(opt, ps, mesh)
+                pairs = {"params": (params, ps), "adamw": (opt, os_)}
+                gb = {}
+                for what, (tree, shs) in pairs.items():
+                    leaves = pytree.tree_flatten_with_path(tree)[0]
+                    shl = pytree.tree_leaves(shs)
+                    per_device = 0
+                    for (path, leaf), sh in zip(leaves, shl):
+                        k = 1
+                        for e, n in zip(sh.spec, leaf.shape):
+                            k *= _ways(e, sizes)
+                            if n % _ways(e, sizes):
+                                fails.append(f"{arch} {what} "
+                                             f"{SH._path_str(path)} "
+                                             f"{tuple(leaf.shape)} {sh.spec}")
+                        per_device += leaf.numel() * leaf.element_size() // k
+                    gb[what] = sum(t.numel() * t.element_size()
+                                   for _, t in leaves) / 1e9
+                    gb[what + "_per_device"] = per_device / 1e9
+                rows.append({"mesh": dict(sizes), "arch": arch,
+                             "fsdp": fsdp, "param_gb": gb["params"],
+                             "param_gb_per_device": gb["params_per_device"],
+                             "zero1_adamw_gb_per_device":
+                                 gb["adamw_per_device"]})
+    return rows, fails
+
+
+def parallel_placement(seed: int, dev, want_loss: float, run: dict,
+                       smoke: bool = False) -> tuple:
+    """(b) a one-rank process group (NCCL on the card, gloo on the CPU) and
+    the ``DeviceMesh`` of a (1, 1) ("data", "model") mesh; the train
+    phase's state (``run``'s configuration, its seed) placed by
+    ``param_shardings``: every local shard equal to its source bit for
+    bit; then one ``make_train_step`` step under ``ShardCtx`` of that mesh
+    on the train phase's first batch, whose loss must equal ``want_loss``
+    (the train phase's first step) bit for bit. Returns (line, fails)."""
+    import torch.distributed as dist
+    import torch.utils._pytree as pytree
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import device_mesh, make_mesh
+    from repro_torch.train import optim as O
+    from repro_torch.train.data import DataConfig, TokenStream
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train.train_step import init_state, make_train_step
+    fails = []
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        dm = device_mesh(make_mesh((1, 1), ("data", "model")))
+        over = {} if smoke else {"n_layers": run["n_layers"]}
+        cfg = get_config(TRAIN_ARCH, smoke=smoke, **over)
+        ocfg = O.OptConfig(lr=1e-3, warmup=min(20, run["steps"] // 5 or 1),
+                           total_steps=run["steps"])     # train_loop's
+        state = init_state(cfg, ocfg,
+                           torch.Generator(device=dev).manual_seed(seed))
+        leaves, treedef = pytree.tree_flatten(state["params"])
+        shs = pytree.tree_leaves(SH.param_shardings(state["params"], dm))
+        placed, differ = [], 0
+        for i, (p, sh) in enumerate(zip(leaves, shs)):
+            local = distribute_tensor(p, dm, sh.placements).to_local()
+            differ += not torch.equal(local, p)
+            placed.append(local)
+            leaves[i] = None
+        del leaves
+        state["params"] = pytree.tree_unflatten(placed, treedef)
+        del placed
+        if differ:
+            fails.append(f"{differ} local shards differ from their source")
+        data = TokenStream(DataConfig(vocab=cfg.vocab,
+                                      global_batch=run["batch"],
+                                      seq_len=run["seq"], seed=seed), cfg)
+        b = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch_at(0).items()}
+        step = make_train_step(cfg, ocfg, shard=SH.shard,
+                               n_micro=run["n_micro"])
+        with SH.ShardCtx(dm):
+            state, metrics = step(state, b)
+        loss = float(metrics["loss"])
+        if loss != want_loss:
+            fails.append(f"loss {loss!r} != the train phase's first-step "
+                         f"loss {want_loss!r}")
+        del state, metrics
+    finally:
+        dist.destroy_process_group()
+    return {"backend": backend, "mesh": {"data": 1, "model": 1},
+            "leaves": len(shs), "loss": loss, "train_first_loss": want_loss,
+            "placements": sorted({str(sh.placements) for sh in shs})}, fails
+
+
+def _rel_rms(a, b) -> float:
+    d = (a.float() - b.float()).pow(2).mean().sqrt()
+    return float(d / b.float().pow(2).mean().sqrt())
+
+
+def _dense_stage(pl, h):
+    """One stage of the reference's dry-run pipeline: its layers of
+    h + tanh(h @ wi) @ wo."""
+    wi, wo = pl
+    for i in range(wi.shape[0]):
+        h = h + torch.tanh(h @ wi[i]) @ wo[i]
+    return h
+
+
+def pipeline_dense(spec: dict, seed: int, dev, runs: int) -> tuple:
+    """(c) ``pipeline_apply`` on the reference's pipeline configuration
+    (:data:`PIPE_DENSE`): against the stages in sequence microbatch by
+    microbatch and the whole batch at once (:data:`PIPE_DENSE_BOUND`);
+    its median time (CUDA events), TFLOP/s and the schedule's bubble.
+    Returns (line, fails)."""
+    from repro_torch.launch.mesh import make_pipeline_mesh
+    from repro_torch.parallel.pipeline import bubble_fraction, pipeline_apply
+    P_, L, d, ff = (spec[k] for k in ("n_stages", "layers_per_stage", "d",
+                                      "ff"))
+    M, mb, S = spec["n_micro"], spec["mb"], spec["seq"]
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    bf = torch.bfloat16
+    wi = torch.randn((P_, L, d, ff), generator=g, device=dev,
+                     dtype=bf).mul_(d ** -0.5)
+    wo = torch.randn((P_, L, ff, d), generator=g, device=dev,
+                     dtype=bf).mul_(ff ** -0.5)
+    x = torch.randn((M * mb, S, d), generator=g, device=dev, dtype=bf)
+    mesh = make_pipeline_mesh(P_, device=str(dev))
+    fails = []
+    with torch.no_grad():
+        pipe = lambda: pipeline_apply(mesh, _dense_stage, (wi, wo), x, M)
+        y = pipe()
+
+        def sequential():
+            out = []
+            for m in range(M):
+                h = x[m * mb:(m + 1) * mb]
+                for s in range(P_):
+                    h = _dense_stage((wi[s], wo[s]), h)
+                out.append(h)
+            return torch.cat(out)
+
+        def whole():
+            h = x
+            for s in range(P_):
+                h = _dense_stage((wi[s], wo[s]), h)
+            return h
+
+        exact = torch.equal(y, sequential())
+        w = whole()
+        ref = x.float()
+        for s in range(P_):
+            ref = _dense_stage((wi[s].float(), wo[s].float()), ref)
+        err_pipe, err_whole = _rel_rms(y, ref), _rel_rms(w, ref)
+        y_vs_whole = {"rel_rms": _rel_rms(y, w), "max_abs_err":
+                      float((y.float() - w.float()).abs().max())}
+        del ref, w
+        if not exact:
+            fails.append("the pipeline differs from the sequential stages")
+        if not err_pipe <= 2 * err_whole + 2.0 ** -9:
+            fails.append(f"relative rms error against float32 {err_pipe} "
+                         f"> 2 x the whole batch's {err_whole} + 2^-9")
+        timing = None
+        if dev.type == "cuda":
+            n = max(3, min(runs, 5))
+            ms, _ = _event_ms(pipe, n)
+            seq_ms, _ = _event_ms(sequential, 3)
+            whole_ms, _ = _event_ms(whole, 3)
+            flops = 4 * M * mb * S * d * ff * P_ * L
+            nbytes = 2 * (wi.numel() + wo.numel() + 2 * x.numel())
+            timing = {"ms": ms, "sequential_ms": seq_ms,
+                      "whole_batch_ms": whole_ms, "runs": n,
+                      "tflops_per_s": flops / (ms / 1e3) / 1e12,
+                      "peak_tflops_per_s": H100_BF16_PEAK / 1e12,
+                      "share_of_peak": flops / (ms / 1e3) / H100_BF16_PEAK,
+                      "flops": flops,
+                      "bound_ms": max(flops / H100_BF16_PEAK,
+                                      nbytes / HBM_BYTES_PER_S) * 1e3,
+                      "bound_by": "operations"
+                      if flops / H100_BF16_PEAK > nbytes / HBM_BYTES_PER_S
+                      else "bytes",
+                      "clock": "CUDA events, median"}
+    return {"config": spec, "weights_gb": 2 * (wi.numel() + wo.numel()) / 1e9,
+            "equal_to_sequential": exact,
+            "rel_rms_err_vs_float32": err_pipe,
+            "whole_batch_rel_rms_err_vs_float32": err_whole,
+            "vs_whole_batch": y_vs_whole, "tolerance": PIPE_DENSE_BOUND,
+            "bubble": bubble_fraction(P_, M),
+            "bubble_note": "(P - 1) / (M + P - 1) of the ticks: a property "
+                           "of the schedule; on one card the stages run one "
+                           "after another, so it costs no time here",
+            "timing": timing}, fails
+
+
+def _grad_rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def pipeline_yi(spec: dict, seed: int, dev, runs: int) -> tuple:
+    """(d) yi-9b's layers (:data:`PIPE_YI`) as ``n_stages`` stages of
+    decoder blocks through ``pipeline_apply``, forward and backward of a
+    fixed linear functional of the output, against the unpipelined block
+    stack on the whole batch (:data:`PIPE_YI_BOUND`); K5's launches in the
+    pipeline's run (one a layer a microbatch); the pipeline's forward and
+    backward time. Returns (line, fails)."""
+    import torch.utils._pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as k5
+    from repro_torch.launch.mesh import make_pipeline_mesh
+    from repro_torch.models import attention as A
+    from repro_torch.models import blocks as BLK
+    from repro_torch.models import lm
+    from repro_torch.models.attention import FLASH_THRESH
+    from repro_torch.parallel.pipeline import pipeline_apply
+    smoke = spec.get("smoke", False)
+    cfg = get_config(TRAIN_ARCH, smoke=smoke, n_layers=spec["n_layers"])
+    P_, M, B, S = (spec[k] for k in ("n_stages", "n_micro", "batch", "seq"))
+    per = cfg.n_layers // P_
+    (kind, _), = BLK.block_kinds(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    seg = lm.init_params(cfg, gen)["seg0"]
+    stacked = pytree.tree_map(lambda t: t.view((P_, per) + t.shape[1:]), seg)
+    x = torch.randn((B, S, cfg.d_model), generator=gen,
+                    device=dev).to(cfg.dtype)
+    G = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+    mask = A.MaskSpec("causal", cfg.window, 0)
+
+    def stage(pl, h):
+        pos = lm._positions(h.shape[0], h.shape[1], h.device)
+        for j in range(per):
+            h, _ = BLK.block_forward(lm.layer_params(pl, j), cfg, kind, h,
+                                     pos, mask)
+        return h
+
+    def unpipelined(ps, h):
+        for s in range(P_):
+            h = stage(pytree.tree_map(lambda t: t[s], ps), h)
+        return h
+
+    mesh = make_pipeline_mesh(P_, device=str(dev))
+    pipelined = lambda ps, h: pipeline_apply(mesh, stage, ps, h, M)
+
+    def fwd_bwd(run):
+        ps = pytree.tree_map(lambda t: t.detach().requires_grad_(), stacked)
+        xx = x.detach().requires_grad_()
+        with torch.enable_grad():
+            y = run(ps, xx)
+            f = (y.float() * G).sum()
+            leaves = pytree.tree_leaves(ps)
+            grads = torch.autograd.grad(f, [xx] + leaves)
+        by_id = {id(t): g for t, g in zip(leaves, grads[1:])}
+        return {"y": y.detach(), "f": float(f.detach()), "gx": grads[0],
+                "gwq": by_id[id(ps["attn"]["wq"])]}
+
+    k5.LAUNCHES = 0                      # counts from the pipeline only
+    got = fwd_bwd(pipelined)
+    launches = k5.LAUNCHES
+    want_launches = cfg.n_layers * M if (S * S > FLASH_THRESH) else 0
+    want = fwd_bwd(unpipelined)
+    fails = []
+    if dev.type == "cuda" and launches != want_launches:
+        fails.append(f"K5 launches {launches}, expected {want_launches}")
+    cmp = {"f_rel": abs(got["f"] - want["f"]) / abs(want["f"]),
+           "y_rel_rms": _rel_rms(got["y"], want["y"]),
+           "y_max_abs_err": float((got["y"].float()
+                                   - want["y"].float()).abs().max()),
+           "y_equal": bool(torch.equal(got["y"], want["y"])),
+           "gx_rel": _grad_rel(got["gx"], want["gx"]),
+           "gwq_rel_by_stage": [_grad_rel(got["gwq"][s], want["gwq"][s])
+                                for s in range(P_)]}
+    if not cmp["f_rel"] <= 2e-3:
+        fails.append(f"functional {got['f']} vs {want['f']}")
+    if not cmp["y_rel_rms"] <= 2e-3:
+        fails.append(f"output relative rms {cmp['y_rel_rms']}")
+    for name, r in [("grad x", cmp["gx_rel"])] + [
+            (f"stage {s} wq grad", r)
+            for s, r in enumerate(cmp["gwq_rel_by_stage"])]:
+        if not r <= 3e-2:
+            fails.append(f"{name}: relative difference {r}")
+    del got, want
+    timing = None
+    if dev.type == "cuda":
+        ms, _ = _event_ms(lambda: fwd_bwd(pipelined), max(2, min(runs, 3)))
+        whole_ms, _ = _event_ms(lambda: fwd_bwd(unpipelined), 2)
+        timing = {"forward_backward_ms": ms, "unpipelined_ms": whole_ms,
+                  "clock": "CUDA events, median"}
+    return {"arch": cfg.name, "layers": cfg.n_layers, "stages": P_,
+            "layers_per_stage": per, "batch": B, "seq": S, "n_micro": M,
+            "k5_launches": launches, "expected_k5_launches": want_launches,
+            "vs_unpipelined": cmp, "tolerance": PIPE_YI_BOUND,
+            "timing": timing}, fails
+
+
+def _parallel(seed, dev, runs, want_loss, train_run, dense, yi, smoke):
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    rows, fails = parallel_specs()
+    specs_s = time.perf_counter() - t
+    for r in rows:
+        emit({"part": "parallel specs", **r})
+    t = time.perf_counter()
+    placement, f = parallel_placement(seed, dev, want_loss, train_run,
+                                      smoke=smoke)
+    fails += [f"placement: {x}" for x in f]
+    placement["seconds"] = time.perf_counter() - t
+    _free(dev)
+    t = time.perf_counter()
+    dense_out, f = pipeline_dense(dense, seed, dev, runs)
+    fails += [f"pipeline (reference config): {x}" for x in f]
+    dense_out["seconds"] = time.perf_counter() - t
+    _free(dev)
+    t = time.perf_counter()
+    yi_out, f = pipeline_yi(yi, seed, dev, runs)
+    fails += [f"pipeline (yi-9b): {x}" for x in f]
+    yi_out["seconds"] = time.perf_counter() - t
+    _free(dev)
+    out = {"phase": "parallel", "specs_s": specs_s, "placement": placement,
+           "pipeline_dense": dense_out, "pipeline_yi": yi_out,
+           "phase_s": time.perf_counter() - t_phase, "fails": fails}
+    emit(out)
+    print(f"parallel: {out['phase_s']:.1f} s", flush=True)
+    if fails:
+        raise AssertionError("parallel: " + "; ".join(fails))
+    return out
+
+
+def run_parallel(*, seed, train_first_loss, runs=25):
+    """The ``parallel`` phase on the card: (a) :func:`parallel_specs`, (b)
+    :func:`parallel_placement` against the train phase's first-step loss
+    ``train_first_loss``, (c) :func:`pipeline_dense`, (d)
+    :func:`pipeline_yi`. Returns the phase line."""
+    return _parallel(seed, torch.device("cuda"), runs, train_first_loss,
+                     TRAIN_RUN, PIPE_DENSE, PIPE_YI, smoke=False)
+
+
+def rehearse_parallel(seed=0):
+    """The ``parallel`` phase's checks on the CPU: (b) at yi-9b's SMOKE
+    size against :func:`rehearse_train`'s first loss (the same run as the
+    train rehearsal's ``train_loop``), (c) and (d) at
+    :data:`REHEARSAL_PIPE_DENSE` and :data:`REHEARSAL_PIPE_YI`. Returns the
+    phase line."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import train_loop
+    run = dict(TRAIN_RUN, seq=64, steps=1)
+    out = train_loop(get_config(TRAIN_ARCH, smoke=True), run["steps"],
+                     run["batch"], run["seq"], seed=seed,
+                     n_micro=run["n_micro"],
+                     mesh=make_local_mesh(device="cpu"), log_every=10 ** 9)
+    return _parallel(seed, torch.device("cpu"), 0, out["losses"][0], run,
+                     REHEARSAL_PIPE_DENSE, REHEARSAL_PIPE_YI, smoke=True)
+
+
+# ------------------------------------------------------------------ examples
+
+# examples/*_torch.py with their documented arguments (the train twin's
+# checkpoints go under build/); quickstart, ycsb_demo and serve_lm must
+# print on the card what they print on the CPU.
+EXAMPLES = ("quickstart_torch", "ycsb_demo_torch", "serve_lm_torch",
+            "train_lm_torch")
+
+
+def _example(name: str, argv) -> list:
+    """Run ``examples/<name>.py``'s ``main(argv)`` in this process; its
+    stdout lines."""
+    import contextlib
+    import importlib.util
+    import io
+    path = os.path.join(ROOT, "examples", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        mod.main(list(argv))
+    return buf.getvalue().splitlines()
+
+
+def _serve_json(lines) -> dict:
+    out = json.loads(lines[-1])
+    return {k: v for k, v in out.items()
+            if k not in ("device", "tok_per_s")}
+
+
+def _examples(dev, compare_cpu: bool):
+    import shutil
+    from repro_torch.kernels.fused_descent import ops as k1
+    from repro_torch.kernels.fused_scan import ops as k2
+    t_phase = time.perf_counter()
+    ck = os.path.join(ROOT, "build", "examples_train_ck")
+    shutil.rmtree(ck, ignore_errors=True)
+    dev_args = [] if dev.type == "cuda" else ["--device", "cpu"]
+    extra = {"train_lm_torch": ["--ckpt", ck]}
+    k1.LAUNCHES = k2.LAUNCHES = 0        # counts from the twins only
+    lines, secs = {}, {}
+    for name in EXAMPLES:
+        t = time.perf_counter()
+        lines[name] = _example(name, dev_args + extra.get(name, []))
+        secs[name] = time.perf_counter() - t
+        for line in lines[name]:
+            print(f"{name}: {line}", flush=True)
+    launches = {"fused_descent": k1.LAUNCHES, "fused_scan": k2.LAUNCHES}
+    shutil.rmtree(ck, ignore_errors=True)
+    fails = []
+    for name in ("quickstart_torch", "ycsb_demo_torch"):
+        printed = json.loads(lines[name][-1][len("launches: "):])
+        if dev.type == "cuda" and printed["fused_descent"] == 0:
+            fails.append(f"{name} launched no fused-descent kernel")
+    if dev.type == "cuda" and not (launches["fused_descent"]
+                                   and launches["fused_scan"]):
+        fails.append(f"kernel launches {launches}")
+    if compare_cpu:
+        for name in ("quickstart_torch", "ycsb_demo_torch"):
+            cpu = _example(name, ["--device", "cpu"])
+            if lines[name][:-1] != cpu[:-1]:
+                fails.append(f"{name}: the card's lines differ from the "
+                             f"CPU's")
+        cpu = _example("serve_lm_torch", ["--device", "cpu"])
+        if _serve_json(lines["serve_lm_torch"]) != _serve_json(cpu):
+            fails.append("serve_lm_torch: the card's JSON differs from the "
+                         "CPU's")
+    tl = lines["train_lm_torch"]
+    train = json.loads("\n".join(tl[max(i for i, x in enumerate(tl)
+                                        if x == "{"):]))
+    if not (train["last5"] < train["first5"]
+            and len(train["restarts"]) == 1):
+        fails.append(f"train_lm_torch: {train}")
+    out = {"phase": "examples", "launches": launches, "seconds": secs,
+           "serve": _serve_json(lines["serve_lm_torch"]),
+           "train": {k: train[k] for k in ("first5", "last5")},
+           "train_restarts": len(train["restarts"]),
+           "phase_s": time.perf_counter() - t_phase, "fails": fails}
+    emit(out)
+    print(f"examples: {out['phase_s']:.1f} s", flush=True)
+    if fails:
+        raise AssertionError("examples: " + "; ".join(fails))
+    return out
+
+
+def run_examples():
+    """The ``examples`` phase on the card: the four twins with their
+    documented arguments, in this process; K1 and K2 launches counted over
+    them; quickstart's, ycsb_demo's and serve_lm's output equal to their
+    CPU runs'; train_lm's loss falls with one restart. Returns the phase
+    line."""
+    return _examples(torch.device("cuda"), compare_cpu=True)
+
+
+def rehearse_examples():
+    """The ``examples`` phase on the CPU (no comparison run)."""
+    return _examples(torch.device("cpu"), compare_cpu=False)
+
+
 def _smi() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -4408,6 +4941,10 @@ def main(argv=None) -> int:
     z_out = run_serve_zamba(seed=args.seed, runs=args.runs)
     k5_checks += [*v_out["k5_real"].values(), *w_out["k5_real"].values(),
                   *z_out["k5_real"].values()]
+    torch.cuda.empty_cache()
+    p_out = run_parallel(seed=args.seed, train_first_loss=t_out["losses"][0],
+                         runs=args.runs)
+    x_out = run_examples()
     k5_rows = {"vlm_256_256": v_out["k5_timing"]["served"],
                "vlm_256_256_8k": v_out["k5_timing"]["long"],
                "whisper_encoder_64_64": w_out["k5_timing"]["encoder"],
@@ -4419,10 +4956,11 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/fused_descent.cu",
         "replaces": "src/repro/kernels/fused_descent/kernel.py:299",
         "launches": main_out["launches"] + sh_out["k1_launches"]
-        + shc_out["k1_launches"],
+        + shc_out["k1_launches"] + x_out["launches"]["fused_descent"],
         "launches_by_path": {"ycsb": main_out["launches"],
                              "shard": sh_out["k1_launches"],
-                             "shard-cache": shc_out["k1_launches"]},
+                             "shard-cache": shc_out["k1_launches"],
+                             "examples": x_out["launches"]["fused_descent"]},
         "max_abs_err": main_out["kernel_vs_plain_max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None}, {
@@ -4430,10 +4968,11 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/fused_scan.cu",
         "replaces": "src/repro/kernels/fused_scan/kernel.py:237",
         "launches": e_out["k2_launches"] + sh_out["k2_launches"]
-        + shc_out["k2_launches"],
+        + shc_out["k2_launches"] + x_out["launches"]["fused_scan"],
         "launches_by_path": {"ycsb-e": e_out["k2_launches"],
                              "shard": sh_out["k2_launches"],
-                             "shard-cache": shc_out["k2_launches"]},
+                             "shard-cache": shc_out["k2_launches"],
+                             "examples": x_out["launches"]["fused_scan"]},
         "max_abs_err": max(e_out["kernel_vs_plain_max_abs_err"],
                            a_out["kernel_vs_plain_max_abs_err"],
                            sh_out["k2_parked_vs_plain_max_abs_err"]),
@@ -4462,7 +5001,8 @@ def main(argv=None) -> int:
         "launches": s_out["launches"]["k5"] + t_out["k5_launches"]
         + m_out["llama4"]["launches"]["k5"] + m_out["deepseek"]["k5_launches"]
         + v_out["k5_launches"] + w_out["k5_launches"]
-        + mb_out["k5_launches"] + z_out["k5_launches"],
+        + mb_out["k5_launches"] + z_out["k5_launches"]
+        + p_out["pipeline_yi"]["k5_launches"],
         "launches_by_path": {
             "serve": s_out["launches"]["k5"], "train": t_out["k5_launches"],
             "serve-moe llama4": m_out["llama4"]["launches"]["k5"],
@@ -4470,7 +5010,8 @@ def main(argv=None) -> int:
             "serve-vlm": v_out["k5_launches"],
             "serve-whisper": w_out["k5_launches"],
             "serve-mamba": mb_out["k5_launches"],
-            "serve-zamba": z_out["k5_launches"]},
+            "serve-zamba": z_out["k5_launches"],
+            "pipeline": p_out["pipeline_yi"]["k5_launches"]},
         "builds": "bf16 (q/k, v) head dims padded to (64, 64), (128, 128) "
                   "(zamba2's 112 zero-padded by TMA), (192, 128) or "
                   "(256, 256); float32 q/k and v up to 256",

@@ -1,8 +1,9 @@
 """End-to-end training loop: data pipeline -> train step ->
 checkpoint/restart with watchdog and optional failure injection — the
 port's counterpart of ``repro.launch.train``. It runs on the card unless
-asked for the CPU; the reference's ``ShardCtx`` is gone (one device, every
-placement the whole tensor).
+asked for the CPU. Each step runs under ``parallel.sharding.ShardCtx`` of
+the mesh with ``shard`` as the train step's hook, as the reference's
+does; on the one-device mesh every placement is the whole tensor.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --smoke \\
       --steps 50 --batch 8 --seq 128 --ckpt /tmp/ck --inject-failure 23 \\
@@ -20,6 +21,7 @@ import torch
 
 from ..configs import get_config
 from ..models.config import ModelConfig
+from ..parallel import sharding as SH
 from ..train import checkpoint as CK
 from ..train import ft
 from ..train import optim as O
@@ -45,9 +47,11 @@ def train_loop(cfg: ModelConfig, steps: int, batch: int, seq: int,
                        total_steps=steps)
     mesh = mesh or make_local_mesh()
     dev = mesh.device
+    ctx = SH.ShardCtx(mesh)
     data = TokenStream(DataConfig(vocab=cfg.vocab, global_batch=batch,
                                   seq_len=seq, seed=seed), cfg)
-    step_fn = make_train_step(cfg, ocfg, n_micro=n_micro, compress=compress)
+    step_fn = make_train_step(cfg, ocfg, shard=SH.shard, n_micro=n_micro,
+                              compress=compress)
     watchdog = ft.Watchdog()
     plan = ft.FailurePlan({inject_failure: "worker-loss"}
                           if inject_failure is not None else {})
@@ -69,7 +73,8 @@ def train_loop(cfg: ModelConfig, steps: int, batch: int, seq: int,
             plan.check(step)
             b = {k: torch.from_numpy(v).to(dev)
                  for k, v in data.batch_at(step).items()}
-            state_box["state"], metrics = step_fn(state_box["state"], b)
+            with ctx:
+                state_box["state"], metrics = step_fn(state_box["state"], b)
             loss = float(metrics["loss"])
             losses[step] = loss
             if step % log_every == 0:

@@ -25,8 +25,8 @@ from . import mamba as M
 from . import mla as MLA
 from . import moe as MOE
 from .config import ModelConfig
-from .layers import (Params, apply_norm, dense_init, mlp_apply, mlp_params,
-                     norm_params)
+from .layers import (NOSHARD, Params, apply_norm, dense_init, mlp_apply,
+                     mlp_params, norm_params)
 
 __all__ = ["block_kinds", "block_params", "enc_block_params",
            "dec_block_params", "block_forward", "block_prefill",
@@ -112,24 +112,26 @@ def dec_block_params(gen, cfg: ModelConfig) -> Params:
             "mlp": mlp_params(gen, d, cfg.d_ff, cfg.mlp, dtype)}
 
 
-def _ffn(p, cfg: ModelConfig, h):
+def _ffn(p, cfg: ModelConfig, h, shard=NOSHARD):
     """The block's FFN on the normed h: (y, MoE aux loss or 0.0)."""
     if "moe" in p:
-        return MOE.moe_apply(p["moe"], cfg, h)
+        return MOE.moe_apply(p["moe"], cfg, h, shard)
     return mlp_apply(p["mlp"], h, cfg.mlp), 0.0
 
 
 # ------------------------------------------------------------------ forward
 def block_forward(p: Params, cfg: ModelConfig, kind: str, x, positions,
-                  mask):
-    """Training/prefill-compute path (no cache). Returns (x, aux_loss)."""
+                  mask, shard=NOSHARD):
+    """Training/prefill-compute path (no cache). Returns (x, aux_loss).
+    ``shard`` reaches the MoE dispatch."""
     _assembled_in_lm(kind)
     h = apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
     if kind in MAMBA:
         y, _ = MAMBA[kind][1](p["mixer"], cfg, h)
         return x + y, 0.0
     x = x + _mixer(p, cfg, kind, h, positions, mask)
-    y, aux = _ffn(p, cfg, apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps))
+    y, aux = _ffn(p, cfg, apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps),
+                  shard)
     return x + y, aux
 
 

@@ -16,9 +16,15 @@ import torch.nn.functional as F
 
 Params = Dict[str, object]
 
-__all__ = ["Params", "dense_init", "embed_init", "rms_norm", "layer_norm",
-           "norm_params", "apply_norm", "mlp_params", "mlp_apply",
-           "rope_freqs", "rope_apply", "softmax_xent"]
+__all__ = ["Params", "NOSHARD", "dense_init", "embed_init", "rms_norm",
+           "layer_norm", "norm_params", "apply_norm", "mlp_params",
+           "mlp_apply", "rope_freqs", "rope_apply", "softmax_xent"]
+
+
+def NOSHARD(x, kind: str):
+    """The activation-placement hook outside a mesh: the identity
+    (``parallel.sharding.shard`` places within one)."""
+    return x
 
 
 def _trunc_normal(gen: torch.Generator, shape, std: float, dtype):

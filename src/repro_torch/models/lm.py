@@ -45,11 +45,22 @@ from . import blocks as BLK
 from . import mamba as M
 from . import mla as MLA
 from .config import ModelConfig
-from .layers import (Params, apply_norm, dense_init, embed_init, mlp_apply,
-                     norm_params)
+from .layers import (NOSHARD, Params, apply_norm, dense_init, embed_init,
+                     mlp_apply, norm_params)
 
-__all__ = ["init_params", "unembed", "forward", "encode", "mtp_logits",
-           "init_cache", "decode_step", "prefill", "layer_params"]
+__all__ = ["init_params", "param_shapes", "unembed", "forward", "encode",
+           "mtp_logits", "init_cache", "cache_shapes", "decode_step",
+           "prefill", "layer_params", "MetaGenerator", "NOSHARD"]
+
+
+class MetaGenerator(torch.Generator):
+    """A generator whose ``device`` is ``meta``: :func:`init_params` then
+    allocates nothing and draws nothing."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
 
 def layer_params(seg: Params, i: int) -> Params:
     """Layer ``i`` of a stacked segment: the same dict of views ``[i]``."""
@@ -151,6 +162,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     return p
 
 
+def param_shapes(cfg: ModelConfig) -> Params:
+    """:func:`init_params`'s keys, shapes and dtypes on the meta device,
+    nothing allocated (the reference's ``jax.eval_shape`` of
+    ``init_params``), deepseek-v3-671b's too."""
+    return init_params(cfg, MetaGenerator())
+
+
 def unembed(p: Params, cfg: ModelConfig, x):
     if cfg.tie_embeddings:
         return x @ p["embed"].T
@@ -208,10 +226,13 @@ def _unbind_layers(seg: Params, n: int):
     return [{k: parts[k][j] for k in parts} for j in range(n)]
 
 
-def forward(p: Params, cfg: ModelConfig, batch: Dict):
+def forward(p: Params, cfg: ModelConfig, batch: Dict, shard=NOSHARD):
     """-> (logits [B,S,V], aux_loss (float32 scalar, the sum over the MoE
     layers), hidden [B,S,d]). For vlm, S counts the image patches first;
-    enc-dec takes ``batch["frames"]`` through :func:`encode`."""
+    enc-dec takes ``batch["frames"]`` through :func:`encode`. ``shard``
+    (``parallel.sharding.shard``) reaches the MoE dispatches only: on one
+    card it is the identity, so the reference's calls at every block
+    boundary wait for a multi-card host (ROADMAP)."""
     if cfg.family == "encdec":
         return _forward_encdec(p, cfg, batch)
     tokens = batch["tokens"]
@@ -228,7 +249,7 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict):
             for pl in _unbind_layers(p[f"seg{i}"], n):
                 def body(h, pl=pl, kind=kind):
                     return BLK.block_forward(pl, cfg, kind, h, positions,
-                                             mask)
+                                             mask, shard)
                 x, a = _maybe_remat(body, cfg)(x)
                 aux = aux + a
     h = apply_norm(x, p["final_norm"], cfg.norm, cfg.norm_eps)
@@ -307,7 +328,7 @@ def _forward_encdec(p: Params, cfg: ModelConfig, batch: Dict):
             torch.zeros((), dtype=torch.float32, device=x.device), h)
 
 
-def mtp_logits(p: Params, cfg: ModelConfig, hidden, tokens):
+def mtp_logits(p: Params, cfg: ModelConfig, hidden, tokens, shard=NOSHARD):
     """DeepSeek's multi-token-prediction head: predict token t+2 from the
     trunk's hidden at t combined with the embedding of token t+1."""
     mtp = p["mtp"]
@@ -318,7 +339,7 @@ def mtp_logits(p: Params, cfg: ModelConfig, hidden, tokens):
     x = torch.cat([hh, he], dim=-1) @ mtp["proj"]
     x, _ = BLK.block_forward(mtp["block"], cfg, BLK.block_kinds(cfg)[-1][0],
                              x, _positions(B, S, x.device),
-                             A.MaskSpec("causal"))
+                             A.MaskSpec("causal"), shard)
     x = apply_norm(x, p["final_norm"], cfg.norm, cfg.norm_eps)
     return unembed(p, cfg, x)
 
@@ -360,6 +381,12 @@ def init_cache(cfg: ModelConfig, B: int, S_max: int, device=None):
     if cfg.attention == "mla":
         return MLA.init_mla_cache(cfg, B, S_max, cfg.n_layers, device=device)
     return A.init_kv_cache(cfg, B, S_max, cfg.n_layers, device=device)
+
+
+def cache_shapes(cfg: ModelConfig, B: int, S_max: int):
+    """:func:`init_cache`'s structure, shapes and dtypes on the meta
+    device."""
+    return init_cache(cfg, B, S_max, device="meta")
 
 
 def _layer_cache(cache, *i):

@@ -28,8 +28,10 @@ Two places differ from the reference on purpose, both for determinism:
   ``moe_mixed``) unnecessary: all three dispatches share one
   :func:`_slot_weights`.
 
-The reference's ``shard=`` hook places activations on a mesh; on one card
-every placement is the whole tensor, so it is accepted and ignored.
+The ``shard=`` hook (``parallel.sharding.shard``) constrains the slots,
+the expert batches, the one-hot masks and the output where the
+reference's does; outside a mesh and for a plain tensor it is the
+identity.
 """
 from __future__ import annotations
 
@@ -39,15 +41,11 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import Params, _trunc_normal, dense_init
+from .layers import NOSHARD, Params, _trunc_normal, dense_init
 
 __all__ = ["moe_params", "capacity", "moe_scatter", "moe_mixed",
            "moe_gshard", "gather_dispatch", "shared_expert", "MOE_IMPLS",
            "moe_apply"]
-
-
-def _noshard(a, kind):
-    return a
 
 
 def moe_params(gen, cfg: ModelConfig, dtype=None) -> Params:
@@ -182,37 +180,39 @@ def _onehot_tokens(slot_token, S: int, dtype):
     return (slot_token[:, None] == s[None, :, None, None]).to(dtype)
 
 
-def moe_scatter(p: Params, cfg: ModelConfig, x, shard=_noshard):
+def moe_scatter(p: Params, cfg: ModelConfig, x, shard=NOSHARD):
     """Gather dispatch, scatter-add combine. x [B,S,d] -> (y [B,S,d],
     aux)."""
     B, S, d = x.shape
     C = capacity(cfg, S)
     idx, w, aux = _route(p, cfg, x)
     slot_token, slot_ksel = _slot_assignment(idx, cfg.n_experts, C)
+    slot_token = shard(slot_token, "bec")
     w_slot = _slot_weights(idx, w, slot_token, slot_ksel)
-    xb = gather_dispatch(_pad_token(x), slot_token)        # [B,E,C,d]
-    h = _expert_ffn(p, cfg, xb) * w_slot[..., None].to(x.dtype)
+    xb = shard(gather_dispatch(_pad_token(x), slot_token), "becd")
+    h = shard(_expert_ffn(p, cfg, xb), "becd") * w_slot[..., None].to(x.dtype)
     bi = torch.arange(B, device=x.device)[:, None, None].expand_as(slot_token)
     y = torch.zeros((B, S + 1, d), dtype=x.dtype, device=x.device)
     y = y.index_put((bi, slot_token.long()), h, accumulate=True)  # combine
-    return y[:, :S], aux
+    return shard(y[:, :S], "bsd"), aux
 
 
-def moe_mixed(p: Params, cfg: ModelConfig, x, shard=_noshard):
+def moe_mixed(p: Params, cfg: ModelConfig, x, shard=NOSHARD):
     """Gather dispatch, one-hot combine einsum."""
     B, S, d = x.shape
     C = capacity(cfg, S)
     idx, w, aux = _route(p, cfg, x)
     slot_token, slot_ksel = _slot_assignment(idx, cfg.n_experts, C)
+    slot_token = shard(slot_token, "bec")
     w_slot = _slot_weights(idx, w, slot_token, slot_ksel)
-    xb = gather_dispatch(_pad_token(x), slot_token)
-    h = _expert_ffn(p, cfg, xb)
-    D = _onehot_tokens(slot_token, S, x.dtype) \
-        * w_slot[:, None].to(x.dtype)
-    return torch.einsum("bsec,becd->bsd", D, h), aux
+    xb = shard(gather_dispatch(_pad_token(x), slot_token), "becd")
+    h = shard(_expert_ffn(p, cfg, xb), "becd")
+    D = shard(_onehot_tokens(slot_token, S, x.dtype)
+              * w_slot[:, None].to(x.dtype), "bsec")
+    return shard(torch.einsum("bsec,becd->bsd", D, h), "bsd"), aux
 
 
-def moe_gshard(p: Params, cfg: ModelConfig, x, shard=_noshard):
+def moe_gshard(p: Params, cfg: ModelConfig, x, shard=NOSHARD):
     """One-hot dispatch and combine einsums (capacity-bounded). The router
     weights apply on the combine only."""
     B, S, d = x.shape
@@ -220,11 +220,12 @@ def moe_gshard(p: Params, cfg: ModelConfig, x, shard=_noshard):
     idx, w, aux = _route(p, cfg, x)
     slot_token, slot_ksel = _slot_assignment(idx, cfg.n_experts, C)
     w_slot = _slot_weights(idx, w, slot_token, slot_ksel)
-    D0 = _onehot_tokens(slot_token, S, x.dtype)
-    Dw = D0 * w_slot[:, None].to(x.dtype)
-    xb = torch.einsum("bsec,bsd->becd", D0, x)             # dispatch
-    h = _expert_ffn(p, cfg, xb)
-    return torch.einsum("bsec,becd->bsd", Dw, h), aux      # combine
+    D0 = shard(_onehot_tokens(slot_token, S, x.dtype), "bsec")
+    Dw = shard(D0 * w_slot[:, None].to(x.dtype), "bsec")
+    xb = shard(torch.einsum("bsec,bsd->becd", D0, x), "becd")  # dispatch
+    h = shard(_expert_ffn(p, cfg, xb), "becd")
+    y = torch.einsum("bsec,becd->bsd", Dw, h)              # combine
+    return shard(y, "bsd"), aux
 
 
 def shared_expert(p: Params, cfg: ModelConfig, x):
@@ -245,7 +246,7 @@ MOE_IMPLS = {"scatter": moe_scatter, "gshard": moe_gshard,
              "mixed": moe_mixed}
 
 
-def moe_apply(p: Params, cfg: ModelConfig, x, shard=_noshard
+def moe_apply(p: Params, cfg: ModelConfig, x, shard=NOSHARD
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     y, aux = MOE_IMPLS[cfg.moe_impl](p, cfg, x, shard)
     return y + shared_expert(p, cfg, x), aux

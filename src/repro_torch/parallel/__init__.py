@@ -1,3 +1,4 @@
 """Distributed-training pieces of the port (``repro.parallel``'s
-counterpart). On one card only gradient compression applies; sharding and
-pipelining come with the multi-card slice (ROADMAP)."""
+counterpart): the sharding rules and ``shard`` hook (``sharding``), the
+GPipe schedule (``pipeline``) and int8 gradient compression
+(``compression``)."""

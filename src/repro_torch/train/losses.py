@@ -17,11 +17,11 @@ __all__ = ["AUX_COEF", "loss_fn"]
 AUX_COEF = 0.01
 
 
-def loss_fn(params, cfg: ModelConfig, batch: Dict
+def loss_fn(params, cfg: ModelConfig, batch: Dict, shard=lm.NOSHARD
             ) -> Tuple[torch.Tensor, Dict]:
     """-> (loss, metrics {"ce", "aux", ["mtp_ce",] "loss"}), float32
-    scalars."""
-    logits, aux, hidden = lm.forward(params, cfg, batch)
+    scalars. ``shard`` is ``lm.forward``'s hook."""
+    logits, aux, hidden = lm.forward(params, cfg, batch, shard)
     tokens = batch["tokens"]
     if cfg.family == "vlm":        # text positions only
         logits = logits[:, cfg.n_patches:]
@@ -29,7 +29,7 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict
     loss = ce + AUX_COEF * aux
     metrics = {"ce": ce, "aux": aux}
     if cfg.mtp:
-        mlogits = lm.mtp_logits(params, cfg, hidden, tokens)
+        mlogits = lm.mtp_logits(params, cfg, hidden, tokens, shard)
         mtp_ce = softmax_xent(mlogits[:, :-2], tokens[:, 2:])
         loss = loss + cfg.mtp_weight * mtp_ce
         metrics["mtp_ce"] = mtp_ce

@@ -13,8 +13,9 @@ Updates write in place, under ``torch.no_grad()``: the parameters, the
 state's tensors (the step counter too) and the gradients (scaled by the
 clip). That is the counterpart of the reference's ``donate_argnums=0``
 (``repro/launch/train.py``): the old state is not kept. The returned
-params and state are the same dicts. ZeRO's ``zero_spec`` and
-``opt_state_shardings`` come with the multi-card slice (ROADMAP).
+params and state are the same dicts. ZeRO-1's specs (``zero_spec``,
+``opt_state_shardings``) shard the state over the mesh's ``"data"`` axis,
+as the reference's do.
 """
 from __future__ import annotations
 
@@ -23,11 +24,13 @@ import math
 
 import torch
 
+from ..launch.mesh import mesh_axes
+from ..parallel.sharding import NamedSharding, P, spec_names
 from .tree import tree_leaves, tree_map
 
 __all__ = ["OptConfig", "schedule", "clip_by_global_norm", "adamw_init",
            "adamw_update", "adafactor_init", "adafactor_update", "opt_init",
-           "opt_update"]
+           "opt_update", "zero_spec", "opt_state_shardings"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,3 +168,46 @@ def opt_update(cfg: OptConfig, params, grads, state):
     if cfg.kind == "adamw":
         return adamw_update(cfg, params, grads, state)
     return adafactor_update(cfg, params, grads, state)
+
+
+# ---------------------------------------------------------------- ZeRO spec
+def zero_spec(pspec: P, shape, mesh) -> P:
+    """ZeRO-1: shard one free dim of an optimizer-state tensor over
+    'data'."""
+    dp = mesh_axes(mesh).get("data", 1)
+    entries = list(pspec) + [None] * (len(shape) - len(pspec))
+    for e in entries:                 # FSDP already shards over 'data'
+        if "data" in spec_names(e):
+            return P(*entries)
+    for i, (e, n) in enumerate(zip(entries, shape)):
+        if e is None and dp > 1 and n % dp == 0 and n >= dp:
+            entries[i] = "data"
+            break
+    return P(*entries)
+
+
+def opt_state_shardings(state, param_shardings, mesh, zero1: bool = True):
+    """Shardings for the optimizer-state tree. m/v/master mirror params
+    (+ZeRO); factored vr/vc and scalars follow shape-based rules."""
+    def like_param(sub):
+        def one(ps, leaf):
+            spec = ps.spec
+            if zero1:
+                spec = zero_spec(spec, tuple(leaf.shape), mesh)
+            return NamedSharding(mesh, spec)
+        return tree_map(one, param_shardings, sub)
+
+    def factored(leaf):
+        shape = tuple(leaf.shape)
+        return NamedSharding(mesh, zero_spec(P(), shape, mesh) if zero1
+                             else P())
+
+    out = {}
+    for k, sub in state.items():
+        if k == "step":
+            out[k] = NamedSharding(mesh, P())
+        elif k in ("m", "v", "master"):
+            out[k] = like_param(sub)
+        else:  # vr / vc — factored: replicate (small) unless dim divisible
+            out[k] = tree_map(factored, sub)
+    return out

@@ -7,9 +7,10 @@ metrics are the last microbatch's. Optional int8 compression with error
 feedback (``parallel.compression``) sits between accumulation and the
 update, its float32 error kept in ``state["error_fb"]``.
 
-The reference's ``shard=`` hook is gone: it places activations on a mesh,
-and on one card every placement is the whole tensor. The update writes
-the state in place (``train.optim``), as the reference donates it.
+``shard=`` (``parallel.sharding.shard``, under a ``ShardCtx``) is handed
+to ``lm.forward``, which gives it to the MoE dispatches; without it the
+step runs with the identity. The update writes the state in place
+(``train.optim``), as the reference donates it.
 """
 from __future__ import annotations
 
@@ -34,28 +35,19 @@ def init_state(cfg: ModelConfig, opt_cfg: O.OptConfig,
     return {"params": params, "opt": O.opt_init(opt_cfg, params)}
 
 
-class _MetaGenerator(torch.Generator):
-    """A generator whose ``device`` is ``meta``: ``lm.init_params`` then
-    allocates nothing and draws nothing."""
-
-    @property
-    def device(self):
-        return torch.device("meta")
-
-
 def state_template(cfg: ModelConfig, opt_cfg: O.OptConfig):
     """:func:`init_state`'s keys, shapes and dtypes on the meta device
     (the reference's ``jax.eval_shape``): a template for
     ``checkpoint.restore``."""
-    return init_state(cfg, opt_cfg, _MetaGenerator())
+    return init_state(cfg, opt_cfg, lm.MetaGenerator())
 
 
-def _grads_of(params, cfg: ModelConfig, batch):
+def _grads_of(params, cfg: ModelConfig, batch, shard=lm.NOSHARD):
     """(grads in each param's dtype, metrics) of ``loss_fn`` at
     ``params``; the params themselves stay out of autograd."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
     with torch.enable_grad():
-        loss, metrics = loss_fn(leaves, cfg, batch)
+        loss, metrics = loss_fn(leaves, cfg, batch, shard)
         flat = tree_leaves(leaves)
         gs = torch.autograd.grad(loss, flat, allow_unused=True)
     by_id = {id(t): torch.zeros_like(t) if g is None else g
@@ -64,15 +56,17 @@ def _grads_of(params, cfg: ModelConfig, batch):
     return grads, {k: v.detach() for k, v in metrics.items()}
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
+def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig, shard=None,
                     n_micro: int = 1, compress: bool = False):
     """Returns f(state, batch) -> (state', metrics); ``batch`` holds
     tensors on the state's device, batch first."""
+    if shard is None:
+        shard = lm.NOSHARD
 
     def step(state, batch):
         params = state["params"]
         if n_micro == 1:
-            grads, metrics = _grads_of(params, cfg, batch)
+            grads, metrics = _grads_of(params, cfg, batch, shard)
         else:
             grads = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=p.device), params)
@@ -80,7 +74,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
                 mb = {k: v.reshape((n_micro, v.shape[0] // n_micro)
                                    + tuple(v.shape[1:]))[i]
                       for k, v in batch.items()}
-                g, metrics = _grads_of(params, cfg, mb)
+                g, metrics = _grads_of(params, cfg, mb, shard)
                 tree_map(lambda a, b: a.add_(b), grads, g)
                 del g
             tree_map(lambda g: g.div_(n_micro), grads)
@@ -99,9 +93,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
     return step
 
 
-def make_eval_step(cfg: ModelConfig):
+def make_eval_step(cfg: ModelConfig, shard=None):
+    if shard is None:
+        shard = lm.NOSHARD
+
     def step(params, batch):
         with torch.no_grad():
-            _, metrics = loss_fn(params, cfg, batch)
+            _, metrics = loss_fn(params, cfg, batch, shard)
         return metrics
     return step

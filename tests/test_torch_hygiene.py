@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``repro_torch``, and not
 ``chip_smoke.py`` nor the port's tools (``tools/chaos_sweep_torch.py``,
-``tools/tree_bench.py``, ``tools/k5_bench.py``, ``tools/decode_drift.py``),
-imports JAX or anything of the reference package."""
+``tools/tree_bench.py``, ``tools/k5_bench.py``, ``tools/decode_drift.py``)
+nor the example twins (``examples/*_torch.py``), imports JAX or anything
+of the reference package."""
 import ast
 import os
 import pkgutil
@@ -14,6 +15,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")
 FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 TOOLS = ("chaos_sweep_torch", "tree_bench", "k5_bench", "decode_drift")
+EXAMPLES = ("quickstart_torch", "ycsb_demo_torch", "serve_lm_torch",
+            "train_lm_torch")
 
 
 def _port_modules():
@@ -34,7 +37,8 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
               "repro_torch.core.lifecycle", "repro_torch.core.protocol",
               "repro_torch.shard.ops", "repro_torch.shard.router",
               "repro_torch.train.train_step", "repro_torch.train.checkpoint",
-              "repro_torch.launch.train", "repro_torch.parallel.compression"):
+              "repro_torch.launch.train", "repro_torch.parallel.compression",
+              "repro_torch.parallel.sharding", "repro_torch.parallel.pipeline"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -42,6 +46,9 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
         "    importlib.import_module(m)\n"
         f"sys.path.insert(0, {os.path.join(ROOT, 'tools')!r})\n"
         f"for m in {TOOLS!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'examples')!r})\n"
+        f"for m in {EXAMPLES!r}:\n"
         "    importlib.import_module(m)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -60,6 +67,8 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     for t in TOOLS:
         yield os.path.join(ROOT, "tools", t + ".py")
+    for e in EXAMPLES:
+        yield os.path.join(ROOT, "examples", e + ".py")
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),
