@@ -191,7 +191,16 @@ the hybrid family (zamba2-7b, K5 at head dim 112 in its shared attention):
 22. ``examples``: the four ``examples/*_torch.py`` twins on the card in
     this process (K1 and K2 launches counted), quickstart's, ycsb_demo's
     and serve_lm's output equal to their CPU runs', train_lm's loss falling
-    with one restart.
+    with one restart;
+23. ``dryrun``: the dry run (``launch/dryrun.py``, fake tensors on "cuda"
+    over fake process groups of 256 and 512 ranks) of yi-9b's three
+    shapes and deepseek-v3's train_4k on both meshes and the pipeline dry
+    run, each a process of its own (:data:`DRYRUN_CELLS`), every record
+    ``ok``; meanwhile the train phase's yi-9b as a 1 x 1 cell whose
+    counted FLOPs must equal the same counter's over the real step
+    (its predicted peak printed beside ``max_memory_allocated``), and K5
+    through a one-rank NCCL DTensor equal to the plain call bit for bit,
+    one launch.
 
 Each phase prints one JSON line. The line before the last holds the
 kernels table; the last line is ``{"ok": true, "device": ...}``. The script
@@ -204,8 +213,9 @@ at 6,000 keys, ``rehearse_train()`` the train phase's at SMOKE size,
 ``rehearse_serve_vlm()``, ``rehearse_serve_whisper()``,
 ``rehearse_serve_mamba()`` and ``rehearse_serve_zamba()`` the serve-vlm,
 serve-whisper, serve-mamba and serve-zamba phases' at SMOKE size,
-``rehearse_parallel()`` and ``rehearse_examples()`` the parallel and
-examples phases' on the CPU.
+``rehearse_parallel()``, ``rehearse_examples()`` and
+``rehearse_dryrun()`` the parallel, examples and dryrun phases' on the
+CPU.
 """
 from __future__ import annotations
 
@@ -4822,6 +4832,260 @@ def rehearse_examples():
     return _examples(torch.device("cpu"), compare_cpu=False)
 
 
+# ------------------------------------------------------------------- dryrun
+
+# The dry run's cells on the card's host (``launch/dryrun.py``, fake
+# tensors on "cuda", ``--profile optimized``), each its own process, all
+# at once: yi-9b in the three shapes and deepseek-v3's training on the
+# single mesh, deepseek-v3's training on the multi mesh; then the
+# pipeline dry run (``launch/dryrun_pipeline.py``).
+DRYRUN_CELLS = (("yi-9b", "train_4k", "single"),
+                ("yi-9b", "prefill_32k", "single"),
+                ("yi-9b", "decode_32k", "single"),
+                ("deepseek-v3-671b", "train_4k", "single"),
+                ("deepseek-v3-671b", "train_4k", "multi"))
+DRYRUN_TIMEOUT = 600
+# the dry run held against the card: the train phase's yi-9b (8 layers,
+# 2 x 4,096 tokens in 2 microbatches; remat "full", the dry run's) as a
+# 1 x 1 cell, and the real step
+DRYRUN_CARD = dict(n_layers=8, seq=4096, batch=2, n_micro=2)
+
+
+def _dryrun_procs(device: str, out_dir: str, cells=DRYRUN_CELLS,
+                  pipeline=None):
+    """Start one process a dry-run cell (and one for the pipeline dry run,
+    ``pipeline`` its config or None for the reference's), all at once;
+    their JSON goes under ``out_dir``. Returns [(what, path, Popen)]."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    for arch, shape, mesh in cells:
+        path = os.path.join(out_dir, f"{arch}.{shape}.{mesh}.json")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--profile",
+               "optimized", "--device", device, "--out", path]
+        procs.append(((arch, shape, mesh), path, subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)))
+    path = os.path.join(out_dir, "pipeline.json")
+    code = ("import json, sys; from repro_torch.launch import "
+            "dryrun_pipeline as P; json.dump(P.run(sys.argv[1], "
+            "json.loads(sys.argv[2])), open(sys.argv[3], 'w'))")
+    procs.append((("pipeline",), path, subprocess.Popen(
+        [sys.executable, "-c", code, device, json.dumps(pipeline or {}),
+         path], cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def _dryrun_wait(procs, timeout: float) -> tuple:
+    """Wait for every process (killing all at ``timeout``); returns (the
+    records by cell, fails)."""
+    t_end = time.perf_counter() + timeout
+    recs, fails = {}, []
+    try:
+        for what, path, p in procs:
+            try:
+                _, err = p.communicate(
+                    timeout=max(1.0, t_end - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                fails.append(f"{what}: no record in {timeout:.0f} s")
+                continue
+            if p.returncode != 0:
+                fails.append(f"{what}: exit {p.returncode}: {err[-600:]}")
+                continue
+            with open(path) as f:
+                rec = json.load(f)
+            recs[what] = rec[0] if isinstance(rec, list) else rec
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return recs, fails
+
+
+def _cell_line(r: dict) -> dict:
+    """A cell's record without its long lists, GB a device beside it."""
+    line = {k: v for k, v in r.items()
+            if k not in ("top_traffic", "collectives")}
+    m = r.get("memory_analysis")
+    if m:
+        line["device_GB"] = (m["argument_size_in_bytes"]
+                             + m["temp_size_in_bytes"]) / 1e9
+        line["fits_80GB"] = line["device_GB"] <= 80.0
+    return line
+
+
+def dryrun_vs_card(seed: int, dev, spec: dict, smoke: bool = False) -> tuple:
+    """yi-9b (``spec``: layers, tokens, batch, microbatches) as a 1 x 1
+    dry-run cell on a fake group, and the same step for real on ``dev``:
+    the dry run's counted FLOPs must equal what the same counter
+    (``cost_analysis.flops_of``) reads over the real step; the predicted
+    per-device peak (arguments + temporaries) is printed beside the real
+    step's ``max_memory_allocated``, and their ratio. Returns (line,
+    fails)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import cost_analysis as CA
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.train_step import init_state, make_train_step
+    fails = []
+    over = {} if smoke else {"n_layers": spec["n_layers"]}
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH, smoke=smoke, **over),
+                              remat="full")
+    t = time.perf_counter()
+    rec = D.run_cell(TRAIN_ARCH, "train_4k", "single",
+                     n_micro=spec["n_micro"], device=dev.type, cfg=cfg,
+                     amesh=make_mesh((1, 1), ("data", "model")),
+                     shape_override=dict(seq_len=spec["seq"],
+                                         global_batch=spec["batch"]))
+    cell_s = time.perf_counter() - t
+    if rec["status"] != "ok":
+        return {"status": rec["status"], "error": rec.get("error")}, [
+            f"the 1 x 1 cell: {rec.get('error')}"]
+    mem = rec["memory_analysis"]
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    ocfg = D.opt_for(cfg)
+    state = init_state(cfg, ocfg,
+                       torch.Generator(device=dev).manual_seed(seed))
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (spec["batch"],
+                                                    spec["seq"]),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    step = make_train_step(cfg, ocfg, n_micro=spec["n_micro"])
+    flops, (state, m) = CA.flops_of(step, state, batch)
+    loss = float(m["loss"])
+    if flops != rec["flops_per_device"]:
+        fails.append(f"the dry run counted {rec['flops_per_device']!r} "
+                     f"FLOPs, the real step {flops!r}")
+    measured = None
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, m = step(state, batch)
+        float(m["loss"])
+        measured = torch.cuda.max_memory_allocated()
+    del state, m, batch
+    return {"cell_s": cell_s, "flops_dry_run": rec["flops_per_device"],
+            "flops_card": flops, "flops_equal": flops == rec[
+                "flops_per_device"], "loss": loss,
+            "predicted_peak_bytes": predicted, "memory_analysis": mem,
+            "measured_peak_bytes": measured,
+            "measured_over_predicted": (measured / predicted
+                                        if measured else None),
+            "reshards": rec["reshards"],
+            "config": dict(spec, layers=cfg.n_layers, remat=cfg.remat,
+                           opt=ocfg.kind)}, fails
+
+
+def k5_through_dtensor(seed: int, dev, shape=(1, 4096, 32, 4, 128)) -> tuple:
+    """K5 on a one-rank mesh's DTensors (NCCL on the card, gloo on the
+    CPU): q, k, v of ``shape`` (B, S, H, Hk, hd; bf16) placed [Shard(0),
+    Shard(2)] over a (1, 1) ("data", "model") ``DeviceMesh``: the output's
+    local shard equal to the plain-tensor call bit for bit, ``LAUNCHES``
+    up by one a call on the card. Returns (line, fails)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.kernels.flash_attention import ops as k5
+    from repro_torch.launch.mesh import device_mesh, make_mesh
+    from repro_torch.models.attention import CAUSAL
+    B, S, H, Hk, hd = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((B, S, h, hd), generator=g, device=dev)
+               .to(torch.bfloat16) for h in (H, Hk, Hk))
+    fails = []
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        dm = device_mesh(make_mesh((1, 1), ("data", "model")))
+        pl = [Shard(0), Shard(2)]
+        qd, kd, vd = (DTensor.from_local(t, dm, pl) for t in (q, k, v))
+        before = k5.LAUNCHES
+        out = k5.flash_sdpa(qd, kd, vd, CAUSAL, H // Hk, hd ** -0.5)
+        launches = k5.LAUNCHES - before
+        want = k5.flash_sdpa(q, k, v, CAUSAL, H // Hk, hd ** -0.5)
+        equal = bool(torch.equal(out.to_local(), want))
+        placements = [str(p) for p in out.placements]
+    finally:
+        dist.destroy_process_group()
+    if not equal:
+        fails.append("K5 through the DTensor differs from the plain call")
+    if dev.type == "cuda" and launches != 1:
+        fails.append(f"K5 through the DTensor: {launches} launches, not 1")
+    return {"backend": backend, "shape": dict(zip("B S H Hk hd".split(),
+                                                  shape)),
+            "equal": equal, "launches": launches,
+            "placements": placements}, fails
+
+
+def _dryrun(seed, dev, spec, cells, pipeline, smoke, out_dir):
+    t_phase = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    procs = _dryrun_procs("cuda" if dev.type == "cuda" else "cpu", out_dir,
+                          cells, pipeline)
+    fails = []
+    try:
+        card, f = dryrun_vs_card(seed, dev, spec, smoke=smoke)
+        fails += [f"1 x 1 cell: {x}" for x in f]
+        _free(dev)
+        k5d, f = k5_through_dtensor(seed, dev)
+        fails += [f"K5 DTensor: {x}" for x in f]
+        _free(dev)
+    finally:
+        recs, f = _dryrun_wait(procs, DRYRUN_TIMEOUT)
+    fails += f
+    for what, r in recs.items():
+        if what == ("pipeline",):
+            continue
+        emit({"part": "dryrun cell", **_cell_line(r)})
+        if r.get("status") != "ok":
+            fails.append(f"{what}: {r.get('status')} {r.get('error')}")
+    pipe = recs.get(("pipeline",))
+    if pipe is not None:
+        emit({"part": "dryrun pipeline", **{
+            k: v for k, v in pipe.items() if k != "per_stage"}})
+    out = {"phase": "dryrun", "vs_card": card, "k5_dtensor": k5d,
+           "cells": {"|".join(w): {"status": r.get("status"),
+                                   "device_GB": _cell_line(r).get(
+                                       "device_GB"),
+                                   "compile_s": r.get("compile_s"),
+                                   "reshards": r.get("reshards")}
+                     for w, r in recs.items() if w != ("pipeline",)},
+           "phase_s": time.perf_counter() - t_phase, "fails": fails}
+    emit(out)
+    print(f"dryrun: {out['phase_s']:.1f} s", flush=True)
+    if fails:
+        raise AssertionError("dryrun: " + "; ".join(fails))
+    return out
+
+
+def run_dryrun(*, seed):
+    """The ``dryrun`` phase on the card: the dry-run cells
+    (:data:`DRYRUN_CELLS`) and the pipeline dry run in processes of their
+    own, meanwhile :func:`dryrun_vs_card` (:data:`DRYRUN_CARD`) and
+    :func:`k5_through_dtensor`. Returns the phase line."""
+    return _dryrun(seed, torch.device("cuda"), DRYRUN_CARD, DRYRUN_CELLS,
+                   None, smoke=False,
+                   out_dir=os.path.join(ROOT, "build", "dryrun"))
+
+
+def rehearse_dryrun(seed=0, out_dir=None):
+    """The ``dryrun`` phase's checks on the CPU: yi-9b's SMOKE widths as
+    the 1 x 1 cell (2 x 1,024 tokens, below ``FLASH_THRESH``: above it the
+    fake tensors take K5's op, the CPU's real ones the tiled path), K5
+    through a one-rank gloo mesh (the plain version), yi-9b's decode cell
+    at full width and the pipeline dry run at a small size. Returns the
+    phase line."""
+    out_dir = out_dir or os.path.join(ROOT, "build", "dryrun-rehearsal")
+    return _dryrun(seed, torch.device("cpu"),
+                   dict(DRYRUN_CARD, seq=1024), DRYRUN_CELLS[2:3],
+                   dict(n_stages=2, repl=2, d=64, ff=128, layers_per_stage=2,
+                        n_micro=4, mb=2, seq=8),
+                   smoke=True, out_dir=out_dir)
+
+
 def _smi() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -4945,6 +5209,8 @@ def main(argv=None) -> int:
     p_out = run_parallel(seed=args.seed, train_first_loss=t_out["losses"][0],
                          runs=args.runs)
     x_out = run_examples()
+    torch.cuda.empty_cache()
+    d_out = run_dryrun(seed=args.seed)
     k5_rows = {"vlm_256_256": v_out["k5_timing"]["served"],
                "vlm_256_256_8k": v_out["k5_timing"]["long"],
                "whisper_encoder_64_64": w_out["k5_timing"]["encoder"],
@@ -5002,7 +5268,8 @@ def main(argv=None) -> int:
         + m_out["llama4"]["launches"]["k5"] + m_out["deepseek"]["k5_launches"]
         + v_out["k5_launches"] + w_out["k5_launches"]
         + mb_out["k5_launches"] + z_out["k5_launches"]
-        + p_out["pipeline_yi"]["k5_launches"],
+        + p_out["pipeline_yi"]["k5_launches"]
+        + d_out["k5_dtensor"]["launches"],
         "launches_by_path": {
             "serve": s_out["launches"]["k5"], "train": t_out["k5_launches"],
             "serve-moe llama4": m_out["llama4"]["launches"]["k5"],
@@ -5011,7 +5278,8 @@ def main(argv=None) -> int:
             "serve-whisper": w_out["k5_launches"],
             "serve-mamba": mb_out["k5_launches"],
             "serve-zamba": z_out["k5_launches"],
-            "pipeline": p_out["pipeline_yi"]["k5_launches"]},
+            "pipeline": p_out["pipeline_yi"]["k5_launches"],
+            "dryrun": d_out["k5_dtensor"]["launches"]},
         "builds": "bf16 (q/k, v) head dims padded to (64, 64), (128, 128) "
                   "(zamba2's 112 zero-padded by TMA), (192, 128) or "
                   "(256, 256); float32 q/k and v up to 256",

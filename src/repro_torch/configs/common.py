@@ -55,9 +55,10 @@ def _spec(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def input_specs(cfg: ModelConfig, shape: str) -> Dict[str, torch.Tensor]:
-    """Model-input stand-ins (meta tensors) for one (arch x shape) cell."""
-    sp = SHAPES[shape]
+def input_specs(cfg: ModelConfig, shape) -> Dict[str, torch.Tensor]:
+    """Model-input stand-ins (meta tensors) for one (arch x shape) cell;
+    ``shape`` a name of :data:`SHAPES` or a :class:`ShapeSpec`."""
+    sp = shape if isinstance(shape, ShapeSpec) else SHAPES[shape]
     B, S = sp.global_batch, sp.seq_len
     i32 = torch.int32
     if sp.kind in ("train", "prefill"):

@@ -22,8 +22,13 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
+from torch.distributed.tensor import Replicate, Shard
 
 from ..kernels.flash_attention import ops as flash_ops
+from ..parallel import dtensor as DT
+from ..parallel.dtensor import (fit_split, heads_in, heads_out, local_call,
+                               write_rows)
 from .config import ModelConfig
 from .layers import (Params, _trunc_normal, dense_init, norm_params,
                      rms_norm, rope_apply, rope_freqs)
@@ -63,9 +68,7 @@ FULL = MaskSpec("full")
 
 def proj_out(flat, wo):
     """[B,S,H*hv] x wo[H,hv,d] -> [B,S,d]."""
-    B, S = flat.shape[:2]
-    H, hv, d = wo.shape
-    return flat.reshape(B, S, H * hv) @ wo.reshape(H * hv, d)
+    return heads_out(flat, wo)
 
 
 class KVCache(NamedTuple):
@@ -95,8 +98,7 @@ def attn_params(gen, cfg: ModelConfig, dtype=None) -> Params:
 def _heads(x, w):
     """x [B,S,d] @ w [d,n,h] -> [B,S,n,h] (the reference's einsum
     ``bsd,dnh->bsnh``)."""
-    d, n, h = w.shape
-    return (x @ w.reshape(d, n * h)).reshape(*x.shape[:-1], n, h)
+    return heads_in(x, w)
 
 
 def _qkv(p: Params, cfg: ModelConfig, x, positions):
@@ -125,17 +127,21 @@ def sdpa(q, k, v, mask: Optional[MaskSpec], n_rep: int,
     Dispatch: small sequences use the exact single-softmax path; long ones
     the flash-attention kernel K5 for tensors on the card, and the tiled
     online softmax :func:`_sdpa_flash` for tensors on the CPU (in the
-    reference: the Pallas kernel on a TPU, the scan path elsewhere).
+    reference: the Pallas kernel on a TPU, the scan path elsewhere). A
+    fake tensor (a dry run's, which has no data) takes K5's op whatever
+    device it names: its trace is the card's.
     """
     B, S, H, hd = q.shape
     T = k.shape[1]
     mask = mask or FULL
     if S * T > FLASH_THRESH:
-        if q.is_cuda:
+        if q.is_cuda or is_fake(q):
             return flash_ops.flash_sdpa(q, k, v, mask, n_rep,
                                         scale or hd ** -0.5)
         return _sdpa_flash(q, k, v, mask, n_rep, scale)
-    return _sdpa_small(q, k, v, mask, n_rep, scale)
+    return flash_ops.sharded_attention(
+        q, k, v, n_rep, lambda q, k, v, rep: _sdpa_small(
+            q, k, v, mask, rep, scale))
 
 
 def _sdpa_small(q, k, v, mask: MaskSpec, n_rep: int, scale=None):
@@ -229,7 +235,7 @@ def attn_prefill(p: Params, cfg: ModelConfig, x, positions,
     out = sdpa(q, k, v, mask, cfg.n_heads // cfg.n_kv_heads)
     pad = (0, 0, 0, 0, 0, cache_len - S)
     return proj_out(out, p["wo"]), KVCache(
-        F.pad(k, pad).to(torch.bfloat16), F.pad(v, pad).to(torch.bfloat16))
+        DT.pad(k, pad).to(torch.bfloat16), DT.pad(v, pad).to(torch.bfloat16))
 
 
 def attn_decode(p: Params, cfg: ModelConfig, x, pos, cache: KVCache,
@@ -237,32 +243,62 @@ def attn_decode(p: Params, cfg: ModelConfig, x, pos, cache: KVCache,
     """One-token decode. x [B,1,d]; pos int32 [B] absolute position.
 
     The new k/v row of each sequence is written into ``cache`` in place
-    (``index_put_``; the reference's ``.at[bidx, pos].set`` returns a new
-    array), and the same cache comes back.
+    (``index_put_``, on each rank's shard for a DTensor cache; the
+    reference's ``.at[bidx, pos].set`` returns a new array), and the same
+    cache comes back.
     """
     q, k, v = _qkv(p, cfg, x, pos[:, None])
     B = x.shape[0]
     S_max = cache.k.shape[1]
     dev = x.device
-    bidx = torch.arange(B, device=dev)
-    pl = pos.long()
-    cache.k.index_put_((bidx, pl), k[:, 0].to(cache.k.dtype))
-    cache.v.index_put_((bidx, pl), v[:, 0].to(cache.v.dtype))
+    write_rows(cache.k, pos, k[:, 0].to(cache.k.dtype))
+    write_rows(cache.v, pos, v[:, 0].to(cache.v.dtype))
     t = torch.arange(S_max, device=dev)[None, :]
     valid = t <= pos[:, None]                                  # [B, S_max]
     if cfg.window:
         valid &= t > (pos[:, None] - cfg.window)
     Hk, n_rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    hd = cfg.hd
-    qg = q.reshape(B, Hk, n_rep, hd)
+    if _heads_sharded(cache.k):
+        out = _decode_attend_local(q, cache, valid, Hk, n_rep)
+    else:
+        qg = fit_split(q, 2, Hk).reshape(B, Hk, n_rep, cfg.hd)
+        out = _decode_attend(qg, cache.k, cache.v, valid, x.dtype)
+    return proj_out(out.reshape(B, 1, Hk * n_rep * cfg.hd), p["wo"]), cache
+
+
+def _decode_attend(qg, ck, cv, valid, dtype):
+    """One query row a sequence against its cache: qg [B,Hk,rep,hd], the
+    cache's k/v [B,S_max,Hk,hd], valid [B,S_max] -> [B,Hk,rep,hd]."""
+    hd = qg.shape[-1]
     # the cache upcast to float32 is exact, as is the reference's astype
     logits = torch.einsum("bkrh,btkh->bkrt", qg.float(),
-                          cache.k.float()) * hd ** -0.5
+                          ck.float()) * hd ** -0.5
     logits = torch.where(valid[:, None, None], logits, NEG)
     w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkrt,btkh->bkrh", w.to(x.dtype),
-                       cache.v.to(x.dtype)).reshape(B, 1, Hk * n_rep * hd)
-    return proj_out(out, p["wo"]), cache
+    return torch.einsum("bkrt,btkh->bkrh", w.to(dtype), cv.to(dtype))
+
+
+def _heads_sharded(t) -> bool:
+    return 2 in DT._sharded_dims(t)
+
+
+def _decode_attend_local(q, cache: KVCache, valid, Hk: int, n_rep: int):
+    """:func:`_decode_attend` for a DTensor cache whose kv heads are
+    sharded (its sequence dim is not): on each rank's sequences and kv
+    heads (the query heads follow them), where DTensor's einsum would
+    merge two sharded dims. -> [B,Hk,rep,hd] placed as the cache's batch
+    and heads."""
+    B, hd = q.shape[0], q.shape[-1]
+    qg = q.reshape(B, Hk, n_rep, hd)
+    pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+          for p in cache.k.placements]
+    q_pl = [Shard(1) if isinstance(p, Shard) and p.dim == 2 else p
+            for p in pl]
+    v_pl = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in pl]
+    return local_call(
+        lambda qg, ck, cv, vd: _decode_attend(qg, ck, cv, vd, q.dtype),
+        (qg, cache.k, cache.v, valid), [q_pl, pl, pl, v_pl], q_pl)
 
 
 # ------------------------------------------------------------------ cross attn

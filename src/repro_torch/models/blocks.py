@@ -123,20 +123,21 @@ def _ffn(p, cfg: ModelConfig, h, shard=NOSHARD):
 def block_forward(p: Params, cfg: ModelConfig, kind: str, x, positions,
                   mask, shard=NOSHARD):
     """Training/prefill-compute path (no cache). Returns (x, aux_loss).
-    ``shard`` reaches the MoE dispatch."""
+    ``shard`` places the mixer's and the FFN's outputs (``"bsd"``) and
+    reaches the MoE dispatch."""
     _assembled_in_lm(kind)
     h = apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
     if kind in MAMBA:
         y, _ = MAMBA[kind][1](p["mixer"], cfg, h)
-        return x + y, 0.0
-    x = x + _mixer(p, cfg, kind, h, positions, mask)
+        return x + shard(y, "bsd"), 0.0
+    x = x + shard(_mixer(p, cfg, kind, h, positions, mask), "bsd")
     y, aux = _ffn(p, cfg, apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps),
                   shard)
-    return x + y, aux
+    return x + shard(y, "bsd"), aux
 
 
 def block_prefill(p, cfg: ModelConfig, kind: str, x, positions, mask,
-                  cache_len: int):
+                  cache_len: int, shard=NOSHARD):
     """Like block_forward but also emits this layer's decode cache (a
     ``KVCache``, an ``MLACache`` for the MLA kinds, the final
     ``MambaState`` for the mamba kinds)."""
@@ -144,22 +145,25 @@ def block_prefill(p, cfg: ModelConfig, kind: str, x, positions, mask,
     h = apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
     if kind in MAMBA:
         y, cache = MAMBA[kind][1](p["mixer"], cfg, h)
-        return x + y, cache
+        return x + shard(y, "bsd"), cache
     if kind.startswith("mla"):
         y, cache = MLA.mla_prefill(p["attn"], cfg, h, positions, mask,
                                    cache_len)
     else:
         y, cache = A.attn_prefill(p["attn"], cfg, h, positions, mask,
                                   cache_len)
-    x = x + y
-    y, _ = _ffn(p, cfg, apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps))
-    return x + y, cache
+    x = x + shard(y, "bsd")
+    y, _ = _ffn(p, cfg, apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps),
+                shard)
+    return x + shard(y, "bsd"), cache
 
 
-def block_decode(p, cfg: ModelConfig, kind: str, x, pos, cache):
+def block_decode(p, cfg: ModelConfig, kind: str, x, pos, cache,
+                 shard=NOSHARD):
     """One-token step. ``cache`` is this layer's cache slice, updated in
     place (a mamba layer's new conv window and ssm state are copied into
-    it); returns (x, cache)."""
+    it); returns (x, cache). ``shard`` reaches the MoE dispatch only, as
+    in the reference."""
     _assembled_in_lm(kind)
     h = apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
     if kind in MAMBA:
@@ -172,7 +176,8 @@ def block_decode(p, cfg: ModelConfig, kind: str, x, pos, cache):
     else:
         y, cache = A.attn_decode(p["attn"], cfg, h, pos, cache)
     x = x + y
-    y, _ = _ffn(p, cfg, apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps))
+    y, _ = _ffn(p, cfg, apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps),
+                shard)
     return x + y, cache
 
 
@@ -200,26 +205,29 @@ def _lora_out(p, lora: Optional[Params], h, y):
     return y + A.proj_out(dq, p["attn"]["wo"])
 
 
-def _shared_mlp(p, cfg: ModelConfig, x):
-    return x + mlp_apply(p["mlp"], apply_norm(x, p["ln2"], cfg.norm,
-                                              cfg.norm_eps), cfg.mlp)
+def _shared_mlp(p, cfg: ModelConfig, x, shard=NOSHARD):
+    return x + shard(mlp_apply(p["mlp"], apply_norm(x, p["ln2"], cfg.norm,
+                                                    cfg.norm_eps), cfg.mlp),
+                     "bsd")
 
 
 def shared_block_forward(p: Params, lora: Optional[Params], cfg: ModelConfig,
-                         x, positions, mask):
+                         x, positions, mask, shard=NOSHARD):
     h = apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
     y = A.attn_forward(p["attn"], cfg, h, positions, mask)
-    return _shared_mlp(p, cfg, x + _lora_out(p, lora, h, y))
+    return _shared_mlp(p, cfg, x + shard(_lora_out(p, lora, h, y), "bsd"),
+                       shard)
 
 
 def shared_block_prefill(p: Params, lora: Optional[Params], cfg: ModelConfig,
-                         x, positions, mask, cache_len: int):
+                         x, positions, mask, cache_len: int, shard=NOSHARD):
     """:func:`shared_block_forward` that also returns the occurrence's
     ``KVCache`` padded to ``cache_len`` (the reference writes it out inside
     ``lm._hybrid_prefill``)."""
     h = apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
     y, cache = A.attn_prefill(p["attn"], cfg, h, positions, mask, cache_len)
-    return _shared_mlp(p, cfg, x + _lora_out(p, lora, h, y)), cache
+    return _shared_mlp(p, cfg, x + shard(_lora_out(p, lora, h, y), "bsd"),
+                       shard), cache
 
 
 def shared_block_decode(p, lora, cfg: ModelConfig, x, pos, cache):

@@ -119,12 +119,60 @@ def rope_apply(x, sin, cos):
 
 
 # ------------------------------------------------------------------ loss
+def _vocab_sharded(t) -> bool:
+    from torch.distributed.tensor import DTensor, Shard
+    return isinstance(t, DTensor) and any(
+        isinstance(p, Shard) and p.dim == t.ndim - 1 for p in t.placements)
+
+
+def _xent_vocab_parallel(logits, labels):
+    """Mean cross entropy of vocab-sharded DTensor logits [..., V]
+    (Megatron's vocab-parallel form), on each rank's shard: the max over
+    the vocab (an all-reduce of the shards' maxima), each shard's sum of
+    exponentials and the label's logit on the shard that holds it (0 on
+    the others), the last two summed over the vocab's mesh dims. Batch
+    shards stay; any other placement of the logits is replicated."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from ..parallel.dtensor import partial_sum, shard_index, strides
+    mesh = logits.device_mesh
+    nd = logits.ndim
+    vocab = [isinstance(p, Shard) and p.dim == nd - 1
+             for p in logits.placements]
+    pl = [p if isinstance(p, Shard) and p.dim in (0, nd - 1) else Replicate()
+          for p in logits.placements]
+    row_pl = [Shard(0) if isinstance(p, Shard) and p.dim == 0
+              else Replicate() for p in pl]
+    sum_pl = [Partial() if v else p for v, p in zip(vocab, row_pl)]
+    shape = logits.shape[:-1]
+    local = logits.redistribute(mesh, pl).to_local().float()
+    m = DTensor.from_local(
+        local.detach().amax(-1), mesh,
+        [Partial("max") if v else p for v, p in zip(vocab, row_pl)],
+        run_check=False, shape=shape, stride=strides(shape))
+    m = m.redistribute(mesh, row_pl)
+    se = partial_sum(torch.exp(local - m.to_local()[..., None]).sum(-1),
+                     mesh, sum_pl, shape)
+    vl = local.shape[-1]
+    lab = labels.redistribute(mesh, row_pl).to_local().long() \
+        - shard_index(mesh, vocab) * vl
+    ok = (lab >= 0) & (lab < vl)
+    got = torch.gather(local, -1, lab.clamp(0, vl - 1)[..., None])[..., 0]
+    got = partial_sum(torch.where(ok, got, 0.0), mesh, sum_pl, shape)
+    return torch.mean(m + torch.log(se) - got)
+
+
 def softmax_xent(logits, labels, mask=None):
     """Cross entropy with a float32 logsumexp.
 
     logits [..., V] (any float dtype), labels int [...]. Returns the mean
-    loss (over ``mask``'s true entries when given).
+    loss (over ``mask``'s true entries when given). Logits that are a
+    ``DTensor`` with the vocab sharded (``shard(.., "bsv")``) take the
+    vocab-parallel form (:func:`_xent_vocab_parallel`): DTensor cannot
+    gather a label across vocab shards.
     """
+    if mask is None and _vocab_sharded(logits):
+        return _xent_vocab_parallel(logits, labels)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     lab = torch.gather(lf, -1, labels[..., None].long())[..., 0]

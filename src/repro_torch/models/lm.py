@@ -44,6 +44,8 @@ from . import attention as A
 from . import blocks as BLK
 from . import mamba as M
 from . import mla as MLA
+from ..parallel.dtensor import embed_lookup, fsdp_gather
+from ..parallel.sharding import placed_cache
 from .config import ModelConfig
 from .layers import (NOSHARD, Params, apply_norm, dense_init, embed_init,
                      mlp_apply, norm_params)
@@ -169,27 +171,34 @@ def param_shapes(cfg: ModelConfig) -> Params:
     return init_params(cfg, MetaGenerator())
 
 
-def unembed(p: Params, cfg: ModelConfig, x):
+def unembed(p: Params, cfg: ModelConfig, x, shard=NOSHARD):
     if cfg.tie_embeddings:
-        return x @ p["embed"].T
-    return x @ p["lm_head"]
+        return shard(x @ fsdp_gather(p["embed"]).T, "bsv")
+    return shard(x @ fsdp_gather(p["lm_head"]), "bsv")
+
+
+def _lookup(table, idx):
+    """``table[idx]``: rows of an embedding table (for a DTensor table on
+    each rank's shard, ``parallel.dtensor.embed_lookup``)."""
+    return embed_lookup(table, idx)
 
 
 def _embed(p: Params, tokens):
-    return p["embed"][tokens.long()]
+    return _lookup(p["embed"], tokens)
 
 
 def _positions(B: int, S: int, device):
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
-def _with_patches(p: Params, cfg: ModelConfig, batch: Dict, x):
+def _with_patches(p: Params, cfg: ModelConfig, batch: Dict, x,
+                  shard=NOSHARD):
     """vlm: the image patches [B, n_patches, frontend_dim] projected and
     prepended to the text embeddings x. Returns (x, the prefix-LM mask's
     bidirectional prefix: n_patches for vlm, else 0)."""
     if cfg.family != "vlm":
         return x, 0
-    xp = batch["patches"].to(x.dtype) @ p["proj"]
+    xp = shard(batch["patches"].to(x.dtype) @ p["proj"], "bsd")
     return torch.cat([xp, x], dim=1), cfg.n_patches
 
 
@@ -230,41 +239,46 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict, shard=NOSHARD):
     """-> (logits [B,S,V], aux_loss (float32 scalar, the sum over the MoE
     layers), hidden [B,S,d]). For vlm, S counts the image patches first;
     enc-dec takes ``batch["frames"]`` through :func:`encode`. ``shard``
-    (``parallel.sharding.shard``) reaches the MoE dispatches only: on one
-    card it is the identity, so the reference's calls at every block
-    boundary wait for a multi-card host (ROADMAP)."""
+    (``parallel.sharding.shard``) places the activations where the
+    reference's does (the embeddings and every block's outputs ``"bsd"``,
+    the logits ``"bsv"``) and reaches the MoE dispatches; on plain tensors
+    it is the identity."""
     if cfg.family == "encdec":
-        return _forward_encdec(p, cfg, batch)
+        return _forward_encdec(p, cfg, batch, shard)
     tokens = batch["tokens"]
     B = tokens.shape[0]
-    x, prefix_len = _with_patches(p, cfg, batch, _embed(p, tokens))
+    x, prefix_len = _with_patches(p, cfg, batch,
+                                  shard(_embed(p, tokens), "bsd"), shard)
     S = x.shape[1]
     positions = _positions(B, S, x.device)
     mask = A.MaskSpec("causal", cfg.window, prefix_len)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
-        x = _hybrid_forward(p, cfg, x, positions, mask)
+        x = _hybrid_forward(p, cfg, x, positions, mask, shard)
     else:
         for i, (kind, n) in enumerate(BLK.block_kinds(cfg)):
             for pl in _unbind_layers(p[f"seg{i}"], n):
                 def body(h, pl=pl, kind=kind):
-                    return BLK.block_forward(pl, cfg, kind, h, positions,
-                                             mask, shard)
+                    return BLK.block_forward(fsdp_gather(pl), cfg, kind, h,
+                                             positions, mask, shard)
                 x, a = _maybe_remat(body, cfg)(x)
                 aux = aux + a
     h = apply_norm(x, p["final_norm"], cfg.norm, cfg.norm_eps)
-    return unembed(p, cfg, h), aux, h
+    return unembed(p, cfg, h, shard), aux, h
 
 
-def _mamba_stack(seg: Params, n: int, cfg: ModelConfig, x, positions, mask):
+def _mamba_stack(seg: Params, n: int, cfg: ModelConfig, x, positions, mask,
+                 shard=NOSHARD):
     """``n`` stacked mamba2 layers, each under ``_maybe_remat``."""
     for pl in _unbind_layers(seg, n):
         x, _ = _maybe_remat(lambda h, pl=pl: BLK.block_forward(
-            pl, cfg, "mamba2", h, positions, mask), cfg)(x)
+            fsdp_gather(pl), cfg, "mamba2", h, positions, mask, shard),
+            cfg)(x)
     return x
 
 
-def _hybrid_forward(p: Params, cfg: ModelConfig, x, positions, mask):
+def _hybrid_forward(p: Params, cfg: ModelConfig, x, positions, mask,
+                    shard=NOSHARD):
     """zamba2: each group's mamba layers (under ``_maybe_remat``), then the
     shared block with the group's LoRA (not rematerialized, as in the
     reference), then the tail."""
@@ -272,10 +286,13 @@ def _hybrid_forward(p: Params, cfg: ModelConfig, x, positions, mask):
     loras = (_unbind_layers(p["lora"], n_grp) if "lora" in p
              else [None] * n_grp)
     for mg, lg in zip(_unbind_layers(p["mamba_grp"], n_grp), loras):
-        x = _mamba_stack(mg, grp_m, cfg, x, positions, mask)
-        x = BLK.shared_block_forward(p["shared"], lg, cfg, x, positions, mask)
+        x = _mamba_stack(mg, grp_m, cfg, x, positions, mask, shard)
+        x = BLK.shared_block_forward(fsdp_gather(p["shared"]),
+                                     fsdp_gather(lg), cfg, x, positions,
+                                     mask, shard)
     if n_tail:
-        x = _mamba_stack(p["mamba_tail"], n_tail, cfg, x, positions, mask)
+        x = _mamba_stack(p["mamba_tail"], n_tail, cfg, x, positions, mask,
+                         shard)
     return x
 
 
@@ -283,48 +300,52 @@ def _norm(x, w, cfg: ModelConfig):
     return apply_norm(x, w, cfg.norm, cfg.norm_eps)
 
 
-def _enc_layer(pl: Params, cfg: ModelConfig, h):
+def _enc_layer(pl: Params, cfg: ModelConfig, h, shard=NOSHARD):
     """One encoder layer: self attention over every frame (no mask, no
     rotary: the positions were added to the input), then the MLP."""
-    h = h + A.attn_forward(pl["attn"], cfg, _norm(h, pl["ln1"], cfg), None,
-                           None)
-    return h + mlp_apply(pl["mlp"], _norm(h, pl["ln2"], cfg), cfg.mlp)
+    h = h + shard(A.attn_forward(pl["attn"], cfg, _norm(h, pl["ln1"], cfg),
+                                 None, None), "bsd")
+    return h + shard(mlp_apply(pl["mlp"], _norm(h, pl["ln2"], cfg), cfg.mlp),
+                     "bsd")
 
 
-def _dec_rest(pl: Params, cfg: ModelConfig, h, kv):
+def _dec_rest(pl: Params, cfg: ModelConfig, h, kv, shard=NOSHARD):
     """A decoder layer after its self attention: cross attention over the
     encoder's (k, v), then the MLP."""
-    h = h + A.cross_attn_forward(pl["cross"], cfg, _norm(h, pl["lnx"], cfg),
-                                 kv)
-    return h + mlp_apply(pl["mlp"], _norm(h, pl["ln2"], cfg), cfg.mlp)
+    h = h + shard(A.cross_attn_forward(pl["cross"], cfg,
+                                       _norm(h, pl["lnx"], cfg), kv), "bsd")
+    return h + shard(mlp_apply(pl["mlp"], _norm(h, pl["ln2"], cfg), cfg.mlp),
+                     "bsd")
 
 
-def encode(p: Params, cfg: ModelConfig, frames):
+def encode(p: Params, cfg: ModelConfig, frames, shard=NOSHARD):
     """Whisper's encoder over stub frame embeddings [B, T, frontend_dim]:
     projected, the learned positions added, the encoder layers, the final
     norm -> [B, T, d]."""
     e = p["enc"]
     T = frames.shape[1]
-    x = frames.to(cfg.dtype) @ e["proj"] + e["pos"][:T]
+    x = shard(frames.to(cfg.dtype) @ e["proj"], "bsd") + e["pos"][:T]
     for pl in _unbind_layers(e["blocks"], cfg.n_enc_layers):
-        x = _maybe_remat(lambda h, pl=pl: _enc_layer(pl, cfg, h), cfg)(x)
+        x = _maybe_remat(lambda h, pl=pl: _enc_layer(fsdp_gather(pl), cfg, h,
+                                                     shard), cfg)(x)
     return _norm(x, e["ln_f"], cfg)
 
 
-def _forward_encdec(p: Params, cfg: ModelConfig, batch: Dict):
-    enc_out = encode(p, cfg, batch["frames"])
+def _forward_encdec(p: Params, cfg: ModelConfig, batch: Dict, shard=NOSHARD):
+    enc_out = encode(p, cfg, batch["frames"], shard)
     tokens = batch["tokens"]
     S = tokens.shape[1]
-    x = _embed(p, tokens) + p["dec_pos"][:S]
+    x = shard(_embed(p, tokens), "bsd") + p["dec_pos"][:S]
 
     def body(h, pl):
         g = _norm(h, pl["ln1"], cfg)
-        h = h + A.attn_forward(pl["attn"], cfg, g, None, A.CAUSAL)
-        return _dec_rest(pl, cfg, h, A.cross_kv(pl["cross"], enc_out))
+        h = h + shard(A.attn_forward(pl["attn"], cfg, g, None, A.CAUSAL),
+                      "bsd")
+        return _dec_rest(pl, cfg, h, A.cross_kv(pl["cross"], enc_out), shard)
     for pl in _unbind_layers(p["dec_blocks"], cfg.n_layers):
-        x = _maybe_remat(lambda h, pl=pl: body(h, pl), cfg)(x)
+        x = _maybe_remat(lambda h, pl=pl: body(h, fsdp_gather(pl)), cfg)(x)
     h = _norm(x, p["final_norm"], cfg)
-    return (unembed(p, cfg, h),
+    return (unembed(p, cfg, h, shard),
             torch.zeros((), dtype=torch.float32, device=x.device), h)
 
 
@@ -336,12 +357,13 @@ def mtp_logits(p: Params, cfg: ModelConfig, hidden, tokens, shard=NOSHARD):
     nxt = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
     he = apply_norm(_embed(p, nxt), mtp["norm_e"], cfg.norm, cfg.norm_eps)
     hh = apply_norm(hidden, mtp["norm_h"], cfg.norm, cfg.norm_eps)
-    x = torch.cat([hh, he], dim=-1) @ mtp["proj"]
-    x, _ = BLK.block_forward(mtp["block"], cfg, BLK.block_kinds(cfg)[-1][0],
+    x = shard(torch.cat([hh, he], dim=-1) @ fsdp_gather(mtp["proj"]), "bsd")
+    x, _ = BLK.block_forward(fsdp_gather(mtp["block"]), cfg,
+                             BLK.block_kinds(cfg)[-1][0],
                              x, _positions(B, S, x.device),
                              A.MaskSpec("causal"), shard)
     x = apply_norm(x, p["final_norm"], cfg.norm, cfg.norm_eps)
-    return unembed(p, cfg, x)
+    return unembed(p, cfg, x, shard)
 
 
 # ===================================================================== caches
@@ -402,14 +424,16 @@ def _stack_states(states):
 
 
 # ===================================================================== decode
-def decode_step(p: Params, cfg: ModelConfig, tokens, pos, cache):
+def decode_step(p: Params, cfg: ModelConfig, tokens, pos, cache,
+                shard=NOSHARD):
     """One new token for every sequence. tokens [B] int32, pos [B] int32
     (for vlm counting the image patches). Returns (logits [B, V], cache).
     Each layer's new k/v row is written into ``cache`` in place, and the
-    same cache comes back."""
+    same cache comes back. ``shard`` places the logits (``"bsv"``) and
+    reaches the MoE dispatches, as the reference's does."""
     x = _embed(p, tokens)[:, None, :]          # [B,1,d]
     if cfg.family == "encdec":
-        x = x + p["dec_pos"][pos.long()][:, None]
+        x = x + _lookup(p["dec_pos"], pos)[:, None]
         for j in range(cfg.n_layers):
             pl = layer_params(p["dec_blocks"], j)
             y, _ = A.attn_decode(pl["attn"], cfg, _norm(x, pl["ln1"], cfg),
@@ -417,19 +441,20 @@ def decode_step(p: Params, cfg: ModelConfig, tokens, pos, cache):
             x = _dec_rest(pl, cfg, x + y, (cache["cross_k"][j],
                                            cache["cross_v"][j]))
         h = _norm(x, p["final_norm"], cfg)
-        return unembed(p, cfg, h)[:, 0], cache
+        return unembed(p, cfg, h, shard)[:, 0], cache
     if cfg.family == "hybrid":
         x = _hybrid_decode(p, cfg, x, pos, cache)
         h = _norm(x, p["final_norm"], cfg)
-        return unembed(p, cfg, h)[:, 0], cache
+        return unembed(p, cfg, h, shard)[:, 0], cache
     off = 0
     for i, (kind, n) in enumerate(BLK.block_kinds(cfg)):
         for j in range(n):
             x, _ = BLK.block_decode(layer_params(p[f"seg{i}"], j), cfg,
-                                    kind, x, pos, _layer_cache(cache, off + j))
+                                    kind, x, pos, _layer_cache(cache, off + j),
+                                    shard)
         off += n
     h = apply_norm(x, p["final_norm"], cfg.norm, cfg.norm_eps)
-    return unembed(p, cfg, h)[:, 0], cache
+    return unembed(p, cfg, h, shard)[:, 0], cache
 
 
 def _hybrid_decode(p: Params, cfg: ModelConfig, x, pos, cache):
@@ -452,7 +477,8 @@ def _hybrid_decode(p: Params, cfg: ModelConfig, x, pos, cache):
 
 
 # ===================================================================== prefill
-def prefill(p: Params, cfg: ModelConfig, batch: Dict, S_max: int):
+def prefill(p: Params, cfg: ModelConfig, batch: Dict, S_max: int,
+            shard=NOSHARD):
     """Process a full prompt; returns (last-token logits [B,V], cache).
 
     Only the final position's logits are computed (serving practice — the
@@ -461,41 +487,46 @@ def prefill(p: Params, cfg: ModelConfig, batch: Dict, S_max: int):
     the projected ``batch["patches"]`` (S_max must hold them); enc-dec
     runs the encoder over ``batch["frames"]`` first. ssm and hybrid stack
     the mamba layers' final states as the reference does (the conv window
-    in the activations' dtype, mamba2's ssm ``[nh, ds, hp]``).
+    in the activations' dtype, mamba2's ssm ``[nh, ds, hp]``). ``shard``
+    places the activations as in :func:`forward`.
     """
     if cfg.family == "encdec":
-        return _prefill_encdec(p, cfg, batch, S_max)
+        return _prefill_encdec(p, cfg, batch, S_max, shard)
     if cfg.family in ("ssm", "hybrid"):
-        return _prefill_mamba(p, cfg, batch, S_max)
+        return _prefill_mamba(p, cfg, batch, S_max, shard)
     tokens = batch["tokens"]
     B = tokens.shape[0]
-    x, prefix_len = _with_patches(p, cfg, batch, _embed(p, tokens))
+    x, prefix_len = _with_patches(p, cfg, batch,
+                                  shard(_embed(p, tokens), "bsd"), shard)
     S = x.shape[1]
     positions = _positions(B, S, x.device)
     mask = A.MaskSpec("causal", cfg.window, prefix_len)
-    cache = init_cache(cfg, B, S_max, device=x.device)
+    cache = placed_cache(lambda dev: init_cache(cfg, B, S_max, device=dev),
+                         x)
     off = 0
     for i, (kind, n) in enumerate(BLK.block_kinds(cfg)):
         for j in range(n):
             x, c = BLK.block_prefill(layer_params(p[f"seg{i}"], j), cfg,
-                                     kind, x, positions, mask, S_max)
+                                     kind, x, positions, mask, S_max, shard)
             for t, ct in zip(_layer_cache(cache, off + j), c):
                 t.copy_(ct)
         off += n
     h = apply_norm(x[:, -1:], p["final_norm"], cfg.norm, cfg.norm_eps)
-    return unembed(p, cfg, h)[:, 0], cache
+    return unembed(p, cfg, h, shard)[:, 0], cache
 
 
-def _prefill_encdec(p: Params, cfg: ModelConfig, batch: Dict, S_max: int):
+def _prefill_encdec(p: Params, cfg: ModelConfig, batch: Dict, S_max: int,
+                    shard=NOSHARD):
     """Enc-dec prefill: the encoder, then each decoder layer with its self
     attention's cache and its cross attention's k and v (over the
     encoder's T frames, rounded to bf16) written into its rows."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    enc_out = encode(p, cfg, batch["frames"])
-    x = _embed(p, tokens) + p["dec_pos"][:S]
+    enc_out = encode(p, cfg, batch["frames"], shard)
+    x = shard(_embed(p, tokens), "bsd") + p["dec_pos"][:S]
     mask = A.MaskSpec("causal", cfg.window, 0)
-    cache = _encdec_cache(cfg, B, S_max, enc_out.shape[1], x.device)
+    cache = placed_cache(lambda dev: _encdec_cache(
+        cfg, B, S_max, enc_out.shape[1], dev), x)
     for j in range(cfg.n_layers):
         pl = layer_params(p["dec_blocks"], j)
         y, c = A.attn_prefill(pl["attn"], cfg, _norm(x, pl["ln1"], cfg),
@@ -505,17 +536,18 @@ def _prefill_encdec(p: Params, cfg: ModelConfig, batch: Dict, S_max: int):
         kv = A.cross_kv(pl["cross"], enc_out)
         cache["cross_k"][j].copy_(kv[0])
         cache["cross_v"][j].copy_(kv[1])
-        x = _dec_rest(pl, cfg, x + y, kv)
+        x = _dec_rest(pl, cfg, x + shard(y, "bsd"), kv, shard)
     h = _norm(x[:, -1:], p["final_norm"], cfg)
-    return unembed(p, cfg, h)[:, 0], cache
+    return unembed(p, cfg, h, shard)[:, 0], cache
 
 
-def _prefill_mamba(p: Params, cfg: ModelConfig, batch: Dict, S_max: int):
+def _prefill_mamba(p: Params, cfg: ModelConfig, batch: Dict, S_max: int,
+                   shard=NOSHARD):
     """The ssm and hybrid prefill (the reference's ssm branch and
     ``_hybrid_prefill``)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = _embed(p, tokens)
+    x = shard(_embed(p, tokens), "bsd")
     positions = _positions(B, S, x.device)
     mask = A.MaskSpec("causal", cfg.window, 0)
 
@@ -524,7 +556,7 @@ def _prefill_mamba(p: Params, cfg: ModelConfig, batch: Dict, S_max: int):
         for j in range(n):
             x, st = BLK.block_prefill(layer_params(seg, j), cfg,
                                       f"mamba{cfg.ssm_version}", x, positions,
-                                      mask, S_max)
+                                      mask, S_max, shard)
             states.append(st)
         return x, _stack_states(states)
 
@@ -532,18 +564,19 @@ def _prefill_mamba(p: Params, cfg: ModelConfig, batch: Dict, S_max: int):
         x, cache = mamba(p["seg0"], cfg.n_layers, x)
     else:
         n_grp, grp_m, n_tail = _hybrid_plan(cfg)
-        attn = A.init_kv_cache(cfg, B, S_max, n_grp, device=x.device)
+        attn = placed_cache(lambda dev: A.init_kv_cache(
+            cfg, B, S_max, n_grp, device=dev), x)
         grp = []
         for g in range(n_grp):
             x, st = mamba(layer_params(p["mamba_grp"], g), grp_m, x)
             grp.append(st)
             lg = layer_params(p["lora"], g) if "lora" in p else None
             x, kv = BLK.shared_block_prefill(p["shared"], lg, cfg, x,
-                                             positions, mask, S_max)
+                                             positions, mask, S_max, shard)
             for t, ct in zip(_layer_cache(attn, g), kv):
                 t.copy_(ct)
         cache = {"grp": _stack_states(grp), "attn": attn}
         if n_tail:
             x, cache["tail"] = mamba(p["mamba_tail"], n_tail, x)
     h = _norm(x[:, -1:], p["final_norm"], cfg)
-    return unembed(p, cfg, h)[:, 0], cache
+    return unembed(p, cfg, h, shard)[:, 0], cache

@@ -32,6 +32,8 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import dtensor as DT
+from ..parallel.dtensor import batch_placements, local_call
 from .config import ModelConfig
 from .layers import Params, dense_init, rms_norm
 
@@ -123,7 +125,7 @@ def _causal_conv(x, w, b, state=None):
     S = x.shape[1]
     K = w.shape[0]
     if state is None:
-        xp = F.pad(x, (0, 0, K - 1, 0))
+        xp = DT.pad(x, (0, 0, K - 1, 0))
     else:
         xp = torch.cat([state.transpose(1, 2)[:, -(K - 1):], x], dim=1)
     y = sum(xp[:, i:i + S] * w[i] for i in range(K)) + b
@@ -155,8 +157,51 @@ def mamba1_forward(p: Params, cfg: ModelConfig, x, state: MambaState = None,
     projection)."""
     ins = mamba1_inputs(p, cfg, x, None if state is None else state.conv)
     h0 = None if state is None else state.ssm
-    y, h = mamba1_scan(cfg, p["A_log"], *ins[:4], h0, chunk)
+    y, h = _channels(lambda A_log, dt, Bp, Cp, xf, h0, chunk: mamba1_scan(
+        cfg, A_log, dt, Bp, Cp, xf, h0, chunk), (p["A_log"], *ins[:4], h0),
+        (0, 2, None, None, 2, 1), (0,), (2, 1), cfg.d_inner, chunk)
     return mamba1_output(p, cfg, x, y, ins, h)
+
+
+def _channels(fn, args, ch_dims, weights, out_ch_dims, n_ch: int,
+              chunk: int):
+    """``fn(*args, chunk)``, a scan independent across batch rows (dim 0
+    of every argument but the weights, those at the indices ``weights``)
+    and channels (``ch_dims[i]``: the channel dim of ``args[i]``, None for
+    one it does not have, e.g. B and C). For
+    DTensors, on each rank's rows and, over every other mesh dim that
+    divides the ``n_ch`` channels, its channels: DTensor's own choices
+    inside a scan gather whole states. The outputs are placed by their
+    channel dims ``out_ch_dims``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    x = next((a for i, a in enumerate(args)
+              if i not in weights and isinstance(a, DTensor)), None)
+    if x is None:
+        return fn(*args, chunk)
+    mesh = x.device_mesh
+    weight = [i in weights for i in range(len(args))]
+    in_pl = [[] for _ in args]
+    grad_pl = [[] for _ in args]
+    out_pl = [[] for _ in out_ch_dims]
+    for md, p in enumerate(batch_placements(x)):
+        batch = not p.is_replicate()
+        ch = not batch and n_ch % mesh.size(md) == 0
+        for i, (d, w) in enumerate(zip(ch_dims, weight)):
+            if batch:
+                pl = Replicate() if w else Shard(0)
+                g = Partial() if w else Shard(0)
+            elif ch and d is not None:
+                pl = g = Shard(d)
+            else:
+                pl = Replicate()
+                g = Partial() if ch else Replicate()
+            in_pl[i].append(pl)
+            grad_pl[i].append(g)
+        for j, d in enumerate(out_ch_dims):
+            out_pl[j].append(Shard(0) if batch else
+                             Shard(d) if ch else Replicate())
+    return local_call(lambda *a: fn(*a, chunk), args, in_pl, out_pl,
+                      grad_pl)
 
 
 def mamba1_inputs(p: Params, cfg: ModelConfig, x, conv_state=None):
@@ -290,7 +335,25 @@ def mamba2_forward(p: Params, cfg: ModelConfig, x, state: MambaState = None,
     xm = xbc[..., :di].reshape(B, S, nh, hp)
     Bp = xbc[..., di:di + ds].float()                            # [B,S,ds]
     Cp = xbc[..., di + ds:].float()
-    A = -torch.exp(p["A_log"])                                   # [nh]
+    h0 = None if state is None else state.ssm.float()
+    y, hT = _channels(_ssd, (xm, dt, Bp, Cp, p["A_log"], p["D"], h0),
+                      (2, 2, None, None, 0, 0, 1), (4, 5), (2, 1), nh, chunk)
+    y = y.reshape(B, S, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    out = y @ p["out_proj"]
+    if conv_state is None:
+        conv_state = torch.zeros((B, di + 2 * ds, cfg.d_conv), dtype=x.dtype,
+                                 device=x.device)
+    return out, MambaState(conv_state.to(x.dtype), hT)
+
+
+def _ssd(xm, dt, Bp, Cp, A_log, D, h0, chunk: int):
+    """mamba2's SSD over xm [B,S,nh,hp] (dt [B,S,nh], B and C [B,S,ds],
+    A_log and D [nh], h0 [B,nh,ds,hp] or None) -> (y [B,S,nh,hp] float32
+    with D x added, the final state [B,nh,ds,hp])."""
+    B, S, nh, hp = xm.shape
+    ds = Bp.shape[-1]
+    A = -torch.exp(A_log)                                        # [nh]
     dA = dt * A                                                  # log decay
 
     Q = min(chunk, S)
@@ -305,7 +368,7 @@ def mamba2_forward(p: Params, cfg: ModelConfig, x, state: MambaState = None,
     cum = torch.cumsum(dA_c, dim=2)                              # [B,nc,Q,nh]
     # ---- intra-chunk (attention-like, exact for τ<=t) ----
     Lmat = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # [B,nc,Q,Q,nh]
-    ar = torch.arange(Q, device=x.device)
+    ar = torch.arange(Q, device=xm.device)
     tri = ar[:, None] >= ar[None, :]
     decay = torch.where(tri[None, None, :, :, None], torch.exp(Lmat), 0.0)
     del Lmat
@@ -321,8 +384,9 @@ def mamba2_forward(p: Params, cfg: ModelConfig, x, state: MambaState = None,
     Sc = torch.einsum("bnqs,bnqh,bnqhp->bnhsp",
                       B_c, sdecay * dt_c, x_c)                   # [B,nc,nh,ds,hp]
     # ---- inter-chunk recurrence over nc ----
-    h0 = (torch.zeros((B, nh, ds, hp), dtype=torch.float32, device=x.device)
-          if state is None else state.ssm.float())
+    if h0 is None:
+        h0 = torch.zeros((B, nh, ds, hp), dtype=torch.float32,
+                         device=xm.device)
     cdecay = torch.exp(last[:, :, 0, :])                         # [B,nc,nh]
     accA, accS = associative_scan(_m2_combine, (cdecay, Sc), dim=1)
     # the state entering chunk n: the earlier chunks' decay of h0 + states
@@ -334,15 +398,8 @@ def mamba2_forward(p: Params, cfg: ModelConfig, x, state: MambaState = None,
     edecay = torch.exp(cum)                                      # from chunk start
     y_inter = torch.einsum("bnqs,bnqh,bnhsp->bnqhp", C_c, edecay, h_in)
     y = (y_intra + y_inter).reshape(B, nc * Q, nh, hp)[:, :S]
-    y = y + xm.float() * p["D"][None, None, :, None]
-    y = y.reshape(B, S, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-    out = y @ p["out_proj"]
-    hT = accA[:, -1][..., None, None] * h0 + accS[:, -1]
-    if conv_state is None:
-        conv_state = torch.zeros((B, di + 2 * ds, cfg.d_conv), dtype=x.dtype,
-                                 device=x.device)
-    return out, MambaState(conv_state.to(x.dtype), hT)
+    y = y + xm.float() * D[None, None, :, None]
+    return y, accA[:, -1][..., None, None] * h0 + accS[:, -1]
 
 
 def mamba2_decode(p: Params, cfg: ModelConfig, x, state: MambaState,

@@ -19,8 +19,9 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
-import torch.nn.functional as F
 
+from ..parallel import dtensor as DT
+from ..parallel.dtensor import heads_in, write_rows
 from .config import ModelConfig
 from .layers import (Params, _trunc_normal, dense_init, rms_norm, rope_apply,
                      rope_freqs)
@@ -54,8 +55,7 @@ def mla_params(gen, cfg: ModelConfig, dtype=None) -> Params:
 
 def _up(x, w):
     """x [..., r] @ w [r, n, h] -> [..., n, h] (the einsum ``bsr,rnh``)."""
-    r, n, h = w.shape
-    return (x @ w.reshape(r, n * h)).reshape(*x.shape[:-1], n, h)
+    return heads_in(x, w)
 
 
 def _queries(p, cfg: ModelConfig, x, positions):
@@ -110,8 +110,8 @@ def mla_prefill(p, cfg: ModelConfig, x, positions, mask, cache_len: int,
     ckv, kr = _latents(p, cfg, x, positions)
     y = _attend(p, cfg, x, positions, mask, (ckv, kr))
     pad = (0, 0, 0, cache_len - x.shape[1])
-    return y, MLACache(F.pad(ckv, pad).to(torch.bfloat16),
-                       F.pad(kr, pad).to(torch.bfloat16))
+    return y, MLACache(DT.pad(ckv, pad).to(torch.bfloat16),
+                       DT.pad(kr, pad).to(torch.bfloat16))
 
 
 def mla_decode(p: Params, cfg: ModelConfig, x, pos, cache: MLACache,
@@ -120,13 +120,10 @@ def mla_decode(p: Params, cfg: ModelConfig, x, pos, cache: MLACache,
     latent row of each sequence is written into ``cache`` in place, and the
     same cache comes back."""
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    B = x.shape[0]
     q_nope, q_rope = _queries(p, cfg, x, pos[:, None])   # [B,1,H,.]
     ckv_t, kr_t = _latents(p, cfg, x, pos[:, None])      # [B,1,kr], [B,1,rope]
-    bidx = torch.arange(B, device=x.device)
-    pl = pos.long()
-    cache.ckv.index_put_((bidx, pl), ckv_t[:, 0].to(cache.ckv.dtype))
-    cache.krope.index_put_((bidx, pl), kr_t[:, 0].to(cache.krope.dtype))
+    write_rows(cache.ckv, pos, ckv_t[:, 0].to(cache.ckv.dtype))
+    write_rows(cache.krope, pos, kr_t[:, 0].to(cache.krope.dtype))
     wuk = p["wukv"][..., :nope]                          # [kr, H, nope]
     wuv = p["wukv"][..., nope:]                          # [kr, H, vh]
     q_lat = torch.einsum("bnh,rnh->bnr", q_nope[:, 0], wuk)   # absorb W_uk

@@ -39,7 +39,9 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from ..parallel.dtensor import batch_placements, local_call, rowwise
 from .config import ModelConfig
 from .layers import NOSHARD, Params, _trunc_normal, dense_init
 
@@ -80,6 +82,8 @@ def _topk(sel, k: int):
 def _route(p: Params, cfg: ModelConfig, x):
     """-> (topk_idx [B,S,k] int32, topk_w [B,S,k] in x's dtype, aux_loss
     float32 scalar)."""
+    if isinstance(x, DTensor):
+        return _route_rows(p, cfg, x)
     logits = x.float() @ p["router"]                      # [B,S,E]
     E, k = cfg.n_experts, cfg.top_k
     if cfg.router == "sigmoid":
@@ -99,8 +103,37 @@ def _route(p: Params, cfg: ModelConfig, x):
     return idx.to(torch.int32), w.to(x.dtype), aux
 
 
+def _route_rows(p: Params, cfg: ModelConfig, x):
+    """:func:`_route` of a DTensor x on each rank's batch rows (the router
+    replicated, its gradient summed over the batch's mesh dims). The
+    Switch aux loss takes its token means as the mean of the rows'."""
+    E = cfg.n_experts
+    names = ["router"] + (["router_bias"] if "router_bias" in p else [])
+
+    def rows(x, *w):
+        q = dict(zip(names, w))
+        idx, wt, _ = _route(q, cfg, x)
+        if cfg.router == "sigmoid":
+            z = torch.zeros((x.shape[0], E), dtype=torch.float32,
+                            device=x.device)
+            return idx, wt, z, z
+        probs = torch.softmax(x.float() @ q["router"], dim=-1)
+        frac = F.one_hot(idx[..., 0].long(), E).float().mean(dim=1)
+        return idx, wt, frac, probs.mean(dim=1)
+
+    idx, wt, frac, pm = rowwise(rows, x, *(p[n] for n in names),
+                                whole=tuple(range(1, 1 + len(names))))
+    if cfg.router == "sigmoid":
+        return idx, wt, torch.zeros((), dtype=torch.float32,
+                                    device=x.device)
+    return idx, wt, E * torch.sum(frac.mean(0) * pm.mean(0))
+
+
 def _expert_ffn(p: Params, cfg: ModelConfig, xb):
-    """xb [B,E,C,d] -> [B,E,C,d] through each expert's FFN."""
+    """xb [B,E,C,d] -> [B,E,C,d] through each expert's FFN; for DTensors
+    on each rank's batch rows and experts (:func:`_expert_ffn_local`)."""
+    if isinstance(xb, DTensor):
+        return _expert_ffn_local(p, cfg, xb)
     if cfg.mlp in ("swiglu", "geglu"):
         g = torch.einsum("becd,edf->becf", xb, p["wg"])
         act = F.silu(g) if cfg.mlp == "swiglu" else F.gelu(
@@ -109,6 +142,39 @@ def _expert_ffn(p: Params, cfg: ModelConfig, xb):
     else:
         h = torch.square(F.relu(torch.einsum("becd,edf->becf", xb, p["wi"])))
     return torch.einsum("becf,efd->becd", h, p["wo"])
+
+
+def _expert_ffn_local(p: Params, cfg: ModelConfig, xb):
+    """:func:`_expert_ffn` on each rank's shard: xb's batch rows over the
+    batch's mesh dims and, where the expert count divides it, its experts
+    over every other mesh dim that shards the expert weights (expert
+    parallelism); the weights' other shards (FSDP's) are gathered and
+    their gradients summed over the batch's mesh dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    names = [n for n in ("wi", "wg", "wo") if n in p]
+    E = xb.shape[1]
+    mesh = xb.device_mesh
+    bpl = batch_placements(xb)
+    x_pl, w_pl, g_pl = [], [], []
+    for md, bp in enumerate(bpl):
+        ep = any(isinstance(p[n].placements[md], Shard)
+                 and p[n].placements[md].dim == 0 for n in names)
+        if not bp.is_replicate():
+            x_pl.append(Shard(0))
+            w_pl.append(Replicate())
+            g_pl.append(Partial())
+        elif ep and E % mesh.size(md) == 0:
+            x_pl.append(Shard(1))
+            w_pl.append(Shard(0))
+            g_pl.append(Shard(0))
+        else:
+            x_pl.append(Replicate())
+            w_pl.append(Replicate())
+            g_pl.append(Replicate())
+    return local_call(
+        lambda xb, *w: _expert_ffn(dict(zip(names, w)), cfg, xb),
+        (xb, *(p[n] for n in names)), [x_pl] + [w_pl] * len(names), x_pl,
+        [x_pl] + [g_pl] * len(names))
 
 
 def _slot_assignment(idx, E: int, C: int):
@@ -180,21 +246,49 @@ def _onehot_tokens(slot_token, S: int, dtype):
     return (slot_token[:, None] == s[None, :, None, None]).to(dtype)
 
 
+def _slots(cfg: ModelConfig, idx, w, C: int):
+    """(slot_token, slot_ksel, w_slot) of :func:`_slot_assignment` and
+    :func:`_slot_weights`, a batch row at a time (``rowwise``: on each
+    rank's rows of a DTensor)."""
+    def rows(idx, w):
+        st, sk = _slot_assignment(idx, cfg.n_experts, C)
+        return st, sk, _slot_weights(idx, w, st, sk)
+    return rowwise(rows, idx, w)
+
+
+def _combine(h, slot_token, S: int):
+    """The scatter-add combine: y[b, slot_token[b,e,c]] += h[b,e,c] over
+    every slot, row S (the empty slots') cut off -> [B,S,d]."""
+    B, d = h.shape[0], h.shape[-1]
+    bi = torch.arange(B, device=h.device)[:, None, None].expand_as(slot_token)
+    y = torch.zeros((B, S + 1, d), dtype=h.dtype, device=h.device)
+    return y.index_put((bi, slot_token.long()), h, accumulate=True)[:, :S]
+
+
 def moe_scatter(p: Params, cfg: ModelConfig, x, shard=NOSHARD):
     """Gather dispatch, scatter-add combine. x [B,S,d] -> (y [B,S,d],
     aux)."""
     B, S, d = x.shape
     C = capacity(cfg, S)
     idx, w, aux = _route(p, cfg, x)
-    slot_token, slot_ksel = _slot_assignment(idx, cfg.n_experts, C)
+    slot_token, slot_ksel, w_slot = _slots(cfg, idx, w, C)
     slot_token = shard(slot_token, "bec")
-    w_slot = _slot_weights(idx, w, slot_token, slot_ksel)
-    xb = shard(gather_dispatch(_pad_token(x), slot_token), "becd")
+    xb = shard(rowwise(lambda x, st: gather_dispatch(_pad_token(x), st),
+                       x, slot_token), "becd")
     h = shard(_expert_ffn(p, cfg, xb), "becd") * w_slot[..., None].to(x.dtype)
-    bi = torch.arange(B, device=x.device)[:, None, None].expand_as(slot_token)
-    y = torch.zeros((B, S + 1, d), dtype=x.dtype, device=x.device)
-    y = y.index_put((bi, slot_token.long()), h, accumulate=True)  # combine
-    return shard(y[:, :S], "bsd"), aux
+    y = rowwise(lambda h, st: _combine(h, st, S), h, slot_token)
+    return shard(y, "bsd"), aux
+
+
+def _combine_onehot(D, h):
+    """einsum("bsec,becd->bsd", D, h). On DTensors as one batched product
+    over the (e, c) slots, e major: DTensor's own einsum merges the
+    contracted dims c-major, which splits an expert-sharded e across the
+    shards."""
+    if not isinstance(D, DTensor):
+        return torch.einsum("bsec,becd->bsd", D, h)
+    B, S, E, C = D.shape
+    return torch.bmm(D.reshape(B, S, E * C), h.reshape(B, E * C, h.shape[-1]))
 
 
 def moe_mixed(p: Params, cfg: ModelConfig, x, shard=NOSHARD):
@@ -202,14 +296,14 @@ def moe_mixed(p: Params, cfg: ModelConfig, x, shard=NOSHARD):
     B, S, d = x.shape
     C = capacity(cfg, S)
     idx, w, aux = _route(p, cfg, x)
-    slot_token, slot_ksel = _slot_assignment(idx, cfg.n_experts, C)
+    slot_token, slot_ksel, w_slot = _slots(cfg, idx, w, C)
     slot_token = shard(slot_token, "bec")
-    w_slot = _slot_weights(idx, w, slot_token, slot_ksel)
-    xb = shard(gather_dispatch(_pad_token(x), slot_token), "becd")
+    xb = shard(rowwise(lambda x, st: gather_dispatch(_pad_token(x), st),
+                       x, slot_token), "becd")
     h = shard(_expert_ffn(p, cfg, xb), "becd")
     D = shard(_onehot_tokens(slot_token, S, x.dtype)
               * w_slot[:, None].to(x.dtype), "bsec")
-    return shard(torch.einsum("bsec,becd->bsd", D, h), "bsd"), aux
+    return shard(_combine_onehot(D, h), "bsd"), aux
 
 
 def moe_gshard(p: Params, cfg: ModelConfig, x, shard=NOSHARD):
@@ -218,13 +312,12 @@ def moe_gshard(p: Params, cfg: ModelConfig, x, shard=NOSHARD):
     B, S, d = x.shape
     C = capacity(cfg, S)
     idx, w, aux = _route(p, cfg, x)
-    slot_token, slot_ksel = _slot_assignment(idx, cfg.n_experts, C)
-    w_slot = _slot_weights(idx, w, slot_token, slot_ksel)
+    slot_token, slot_ksel, w_slot = _slots(cfg, idx, w, C)
     D0 = shard(_onehot_tokens(slot_token, S, x.dtype), "bsec")
     Dw = shard(D0 * w_slot[:, None].to(x.dtype), "bsec")
     xb = shard(torch.einsum("bsec,bsd->becd", D0, x), "becd")  # dispatch
     h = shard(_expert_ffn(p, cfg, xb), "becd")
-    y = torch.einsum("bsec,becd->bsd", Dw, h)              # combine
+    y = _combine_onehot(Dw, h)                              # combine
     return shard(y, "bsd"), aux
 
 

@@ -29,7 +29,11 @@ import torch.utils._pytree as pytree
 
 from ..launch.mesh import mesh_axes
 
-__all__ = ["pipeline_apply", "bubble_fraction"]
+__all__ = ["pipeline_apply", "bubble_fraction", "HANDOFFS"]
+
+# the hand-offs this process made across ranks: [count, bytes] of sends and
+# receives (``dist.batch_isend_irecv`` reaches no dispatch mode to count it)
+HANDOFFS = {"send": [0, 0], "recv": [0, 0]}
 
 
 def bubble_fraction(n_stages: int, n_micro: int) -> float:
@@ -77,6 +81,11 @@ def pipeline_apply(mesh, stage_fn: Callable, params_stacked, x,
     return torch.cat(out, dim=0)
 
 
+def _handoff(kind: str, t) -> None:
+    HANDOFFS[kind][0] += 1
+    HANDOFFS[kind][1] += t.numel() * t.element_size()
+
+
 @torch.no_grad()
 def _across_ranks(mesh, stage_fn, params_stacked, x, n_micro: int, mb: int,
                   n_stages: int):
@@ -100,10 +109,12 @@ def _across_ranks(mesh, stage_fn, params_stacked, x, n_micro: int, mb: int,
             else:
                 ops.append(dist.P2POp(dist.isend, y.contiguous(),
                                       rank_of[sid + 1], group))
+                _handoff("send", y)
         if sid > 0 and 0 <= t + 1 - sid < n_micro:   # next tick's input
             cur = torch.empty((mb,) + tuple(x.shape[1:]), dtype=x.dtype,
                               device=x.device)
             ops.append(dist.P2POp(dist.irecv, cur, rank_of[sid - 1], group))
+            _handoff("recv", cur)
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()

@@ -29,14 +29,16 @@ import re
 import threading
 from typing import Optional, Tuple
 
+import torch
 import torch.utils._pytree as pytree
 
 from ..launch.mesh import mesh_axes
+from .dtensor import strides
 
 __all__ = ["PartitionSpec", "P", "NamedSharding", "batch_axes", "axis_size",
            "ShardCtx", "shard", "param_spec", "add_fsdp", "param_shardings",
            "batch_shardings", "cache_spec", "cache_shardings",
-           "to_placements", "spec_names"]
+           "to_placements", "spec_names", "place", "placed_cache"]
 
 _CTX = threading.local()
 
@@ -350,6 +352,38 @@ def cache_spec(path: str, shape: Tuple[int, ...], mesh) -> P:
             return P(*lead, bspec, None, "model", None)
         return P(*lead, bspec, "model" if _div(S, tp) else None, None, None)
     return P(*([None] * nd))
+
+
+def place(meta, sharding: NamedSharding, dmesh, device, zero: bool = False):
+    """A DTensor of ``meta``'s global shape and dtype placed by
+    ``sharding`` on the ``DeviceMesh`` ``dmesh``, its local shard a new
+    tensor on ``device`` (uninitialised, or zeros with ``zero``; a fake
+    one under ``FakeTensorMode``). The specs' sharded dims divide."""
+    from torch.distributed.tensor import DTensor, Shard
+    pl = sharding.placements
+    shape = tuple(meta.shape)
+    local = list(shape)
+    for md, p in enumerate(pl):
+        if isinstance(p, Shard):
+            local[p.dim] //= dmesh.size(md)
+    new = torch.zeros if zero else torch.empty
+    return DTensor.from_local(new(local, dtype=meta.dtype, device=device),
+                              dmesh, pl, run_check=False,
+                              shape=torch.Size(shape), stride=strides(shape))
+
+
+def placed_cache(make, like):
+    """``make(device)``'s zero cache; where ``like`` is a DTensor, placed
+    by :func:`cache_shardings` on its mesh (each rank holds its shard)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(like, DTensor):
+        return make(like.device)
+    dmesh = like.device_mesh
+    meta = make("meta")
+    sh = cache_shardings(meta, dmesh)
+    return pytree.tree_map(
+        lambda m, s: place(m, s, dmesh, like.device, zero=True), meta, sh,
+        is_leaf=lambda t: isinstance(t, NamedSharding))
 
 
 def cache_shardings(cache, mesh):

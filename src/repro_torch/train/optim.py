@@ -127,6 +127,21 @@ def adafactor_init(params):
                                 device=_step_device(params))}
 
 
+def _aligned(t, like, dims):
+    """``t``, a factored moment of ``like``'s gradient whose dim i is the
+    gradient's dim ``dims[i]``, placed as the gradient shards those dims
+    (replicated over the others), so that their outer product comes out
+    placed as the gradient, each rank's block from its own shards. Plain
+    tensors as they are."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(t, DTensor) or not isinstance(like, DTensor):
+        return t
+    inv = {d: i for i, d in enumerate(dims)}
+    pl = [Shard(inv[p.dim]) if isinstance(p, Shard) and p.dim in inv
+          else Replicate() for p in like.placements]
+    return t.redistribute(t.device_mesh, pl)
+
+
 @torch.no_grad()
 def adafactor_update(cfg: OptConfig, params, grads, state):
     state["step"] += 1
@@ -141,8 +156,11 @@ def adafactor_update(cfg: OptConfig, params, grads, state):
         if p.ndim >= 2:
             vr.mul_(beta).add_((1 - beta) * g2.mean(-1))
             vc.mul_(beta).add_((1 - beta) * g2.mean(-2))
-            denom = (vr[..., None] * vc[..., None, :]
-                     / torch.clamp(vr.mean(-1)[..., None, None], min=1e-30))
+            n = p.ndim
+            r = _aligned(vr, g, list(range(n - 1)))
+            c = _aligned(vc, g, list(range(n - 2)) + [n - 1])
+            denom = (r[..., None] * c[..., None, :]
+                     / torch.clamp(r.mean(-1)[..., None, None], min=1e-30))
             u = g * torch.rsqrt(denom + 1e-30)
         else:
             vr.mul_(beta).add_((1 - beta) * g2)

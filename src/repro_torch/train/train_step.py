@@ -8,9 +8,12 @@ feedback (``parallel.compression``) sits between accumulation and the
 update, its float32 error kept in ``state["error_fb"]``.
 
 ``shard=`` (``parallel.sharding.shard``, under a ``ShardCtx``) is handed
-to ``lm.forward``, which gives it to the MoE dispatches; without it the
-step runs with the identity. The update writes the state in place
-(``train.optim``), as the reference donates it.
+to ``lm.forward``, which places the activations with it as the reference
+does; without it the step runs with the identity. On DTensor state
+(placed by ``param_shardings`` and ``opt_state_shardings``) the step runs
+sharded; the accumulators take the parameters' placements. The update
+writes the state in place (``train.optim``), as the reference donates
+it.
 """
 from __future__ import annotations
 
@@ -68,8 +71,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig, shard=None,
         if n_micro == 1:
             grads, metrics = _grads_of(params, cfg, batch, shard)
         else:
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             for i in range(n_micro):
                 mb = {k: v.reshape((n_micro, v.shape[0] // n_micro)
                                    + tuple(v.shape[1:]))[i]

@@ -23,8 +23,11 @@ def tree_map(fn: Callable, tree, *rest):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        kids = (tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree))
+        if hasattr(tree, "_fields"):         # a named tuple
+            return type(tree)(*kids)
+        return type(tree)(kids)
     return fn(tree, *rest)
 
 

@@ -38,7 +38,10 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
               "repro_torch.shard.ops", "repro_torch.shard.router",
               "repro_torch.train.train_step", "repro_torch.train.checkpoint",
               "repro_torch.launch.train", "repro_torch.parallel.compression",
-              "repro_torch.parallel.sharding", "repro_torch.parallel.pipeline"):
+              "repro_torch.parallel.sharding", "repro_torch.parallel.pipeline",
+              "repro_torch.launch.dryrun", "repro_torch.launch.dryrun_pipeline",
+              "repro_torch.launch.cost_analysis", "repro_torch.launch.report",
+              "repro_torch.parallel.dtensor"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
