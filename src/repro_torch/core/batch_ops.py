@@ -212,57 +212,55 @@ def _put(arr: torch.Tensor, idx, new, keep: torch.Tensor) -> None:
 # lookup / update / remove
 # --------------------------------------------------------------------------
 
-def _lookup(tree, qb, ql, sibling_check, engine):
-    _, _, found, _, val, bstats, lstats = _traverse_probe(
-        tree, qb, ql, engine, sibling_check)
-    return val, _report(found, bstats, lstats)
-
-
 def lookup_batch(tree: FBTree, qb, ql, sibling_check: bool = True,
                  engine: Optional[TraversalEngine] = None):
     """Batched point lookup. Returns (vals [B], report).
 
     ``qb``/``ql`` may be numpy arrays or tensors; they are moved to the
-    tree's device. Telemetry (DESIGN.md §9): with ``repro_torch.obs``
-    enabled, the call runs under a host span (histogram
-    ``span.op.lookup``) and the report's counters drain into the registry
-    with one device-to-host copy per batch. With it off this is the bare
-    call.
+    tree's device. Telemetry (DESIGN.md §9): the whole call runs under the
+    root span ``op.lookup``, the query move included, with the stages
+    ``descend_probe`` (the engine's descent and leaf probe; under
+    ``"fused"``, the wrapper's checks, its ``torch.empty`` outputs and K1's
+    launch) and ``report`` (the report, and its drain into the counters).
+    Spans time the host's enqueue; a kernel's device time comes from a
+    profiler trace, put down to the span whose interval holds its launch
+    (CUPTI's launch correlation). With ``obs.enable()`` the counters add
+    into device-side sums, with no host sync. With telemetry and recording
+    off each span is one predicate check.
     """
-    qb, ql = _queries(tree, qb, ql)
-    if not obs.enabled():
-        return _lookup(tree, qb, ql, sibling_check, engine)
     with obs.span("op.lookup"):
-        val, rep = _lookup(tree, qb, ql, sibling_check, engine)
-        obs.drain_op_report("lookup", rep)
+        qb, ql = _queries(tree, qb, ql)
+        eng = resolve_engine(engine)
+        with obs.span("descend_probe"):
+            _, _, found, _, val, bstats, lstats = _traverse_probe(
+                tree, qb, ql, eng, sibling_check)
+        with obs.span("report"):
+            rep = _report(found, bstats, lstats)
+            obs.drain_op_report("lookup", rep, eng.collect_stats)
     return val, rep
 
 
 def _point_write_lanes(tree: FBTree, qb, ql, engine, mask):
-    """Dedupe + descend + probe shared by update, remove and insert: returns
-    the dedupe winners, the lanes that write in place (``do`` = winners
-    whose key was found), their scatter coordinates (the other lanes point
-    at the scratch leaf) and the report inputs."""
+    """Dedupe + descend + probe shared by update, remove and insert, as
+    the stages ``dedupe`` and ``descend_probe``: returns the dedupe
+    winners, the lanes that write in place (``do`` = winners whose key was
+    found), their scatter coordinates (the other lanes point at the
+    scratch leaf) and the report inputs. The coordinates are made inside
+    ``descend_probe``, so that the descent's int32 leaf ids and slots are
+    gone before a caller clones and scatters (the update's memory peak)."""
     B = qb.shape[0]
     dump = tree.arrays.leaf_occ.shape[0] - 1
-    winners, conflicts = dedupe_last_wins(
-        qb, ql, torch.arange(B, dtype=I32, device=qb.device))
-    if mask is not None:
-        winners = winners & mask
-    leaf_ids, _, found, slot, _, bstats, lstats = _traverse_probe(
-        tree, qb, ql, engine)
-    do = winners & found
-    li = torch.where(do, leaf_ids, dump).long()
+    with obs.span("dedupe"):
+        winners, conflicts = dedupe_last_wins(
+            qb, ql, torch.arange(B, dtype=I32, device=qb.device))
+        if mask is not None:
+            winners = winners & mask
+    with obs.span("descend_probe"):
+        leaf_ids, _, found, slot, _, bstats, lstats = _traverse_probe(
+            tree, qb, ql, engine)
+        do = winners & found
+        li = torch.where(do, leaf_ids, dump).long()
     return winners, do, (li, slot.long()), found, bstats, lstats, conflicts
-
-
-def _update(tree, qb, ql, vals, engine, mask):
-    _, do, at, found, bstats, lstats, conflicts = _point_write_lanes(
-        tree, qb, ql, engine, mask)
-    lv = tree.arrays.leaf_val.clone()
-    _put(lv, at, vals, do)
-    return tree.replace(leaf_val=lv), _report(found, bstats, lstats,
-                                              conflicts=conflicts)
 
 
 def update_batch(tree: FBTree, qb, ql, vals,
@@ -273,46 +271,54 @@ def update_batch(tree: FBTree, qb, ql, vals,
     Does NOT bump leaf versions (§4.2 — readers never restart on updates).
     ``mask`` (bool [B], optional) is the routed-op hook (DESIGN.md §7):
     lanes with ``mask=False`` never write. ``found`` is reported for every
-    lane regardless of mask. Same obs contract as :func:`lookup_batch`
-    (span ``op.update``).
+    lane regardless of mask. Same obs contract as :func:`lookup_batch`:
+    root span ``op.update`` with the stages ``dedupe``
+    (:func:`dedupe_last_wins`), ``descend_probe`` (with the in-place lanes
+    and their scatter coordinates), ``clone`` (of ``leaf_val``), ``write``
+    (the masked scatter) and ``report``.
     """
-    qb, ql = _queries(tree, qb, ql)
-    vals, mask = _lanes(tree, vals, mask)
-    if not obs.enabled():
-        return _update(tree, qb, ql, vals, engine, mask)
     with obs.span("op.update"):
-        tree2, rep = _update(tree, qb, ql, vals, engine, mask)
-        obs.drain_op_report("update", rep)
-    return tree2, rep
-
-
-def _remove(tree, qb, ql, engine, mask):
-    a = tree.arrays
-    _, do, at, found, bstats, lstats, conflicts = _point_write_lanes(
-        tree, qb, ql, engine, mask)
-    occ, kid, ver = (a.leaf_occ.clone(), a.leaf_keyid.clone(),
-                     a.leaf_version.clone())
-    _put(occ, at, False, do)
-    _put(kid, at, EMPTY, do)
-    ver.index_put_((at[0],), do.to(I32), accumulate=True)
-    return (tree.replace(leaf_occ=occ, leaf_keyid=kid, leaf_version=ver),
-            _report(found, bstats, lstats, conflicts=conflicts))
+        qb, ql = _queries(tree, qb, ql)
+        vals, mask = _lanes(tree, vals, mask)
+        eng = resolve_engine(engine)
+        _, do, at, found, bstats, lstats, conflicts = _point_write_lanes(
+            tree, qb, ql, eng, mask)
+        with obs.span("clone"):
+            lv = tree.arrays.leaf_val.clone()
+        with obs.span("write"):
+            _put(lv, at, vals, do)
+        with obs.span("report"):
+            rep = _report(found, bstats, lstats, conflicts=conflicts)
+            obs.drain_op_report("update", rep, eng.collect_stats)
+    return tree.replace(leaf_val=lv), rep
 
 
 def remove_batch(tree: FBTree, qb, ql,
                  engine: Optional[TraversalEngine] = None, mask=None):
     """Tombstone removal (slot cleared, version bumped). Returns
     ``(tree', report)``. ``mask`` gates writes exactly as in
-    :func:`update_batch`; same obs contract (span ``op.remove``)."""
-    qb, ql = _queries(tree, qb, ql)
-    if mask is not None:
-        mask = torch.as_tensor(mask, device=tree.device).to(torch.bool)
-    if not obs.enabled():
-        return _remove(tree, qb, ql, engine, mask)
+    :func:`update_batch`; same obs contract and stages (root span
+    ``op.remove``; ``clone`` copies the occupancy, key id and version
+    rows)."""
     with obs.span("op.remove"):
-        tree2, rep = _remove(tree, qb, ql, engine, mask)
-        obs.drain_op_report("remove", rep)
-    return tree2, rep
+        qb, ql = _queries(tree, qb, ql)
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=tree.device).to(torch.bool)
+        eng = resolve_engine(engine)
+        _, do, at, found, bstats, lstats, conflicts = _point_write_lanes(
+            tree, qb, ql, eng, mask)
+        a = tree.arrays
+        with obs.span("clone"):
+            occ, kid, ver = (a.leaf_occ.clone(), a.leaf_keyid.clone(),
+                             a.leaf_version.clone())
+        with obs.span("write"):
+            _put(occ, at, False, do)
+            _put(kid, at, EMPTY, do)
+            ver.index_put_((at[0],), do.to(I32), accumulate=True)
+        with obs.span("report"):
+            rep = _report(found, bstats, lstats, conflicts=conflicts)
+            obs.drain_op_report("remove", rep, eng.collect_stats)
+    return tree.replace(leaf_occ=occ, leaf_keyid=kid, leaf_version=ver), rep
 
 
 # --------------------------------------------------------------------------
@@ -706,20 +712,29 @@ def insert_batch(tree: FBTree, qb, ql, vals, max_ov: int = 128,
     table or the root overflows, or when ops are still pending after
     ``max_rounds``.
 
-    Telemetry: same obs contract as :func:`lookup_batch` (span
-    ``op.insert``), plus an ``op.rounds`` counter labeled ``op=insert``.
+    Telemetry: same obs contract as :func:`lookup_batch`, root span
+    ``op.insert`` with the stages ``prepare`` (dedupe, descent, in-place
+    updates and the pool append), ``round`` (once per split round),
+    ``sync`` (each ``bool`` read of a device flag: its host time is the
+    wait on the card) and ``report``, plus an ``op.rounds`` counter
+    labeled ``op=insert``.
     """
-    qb, ql = _queries(tree, qb, ql)
-    vals, mask = _lanes(tree, vals, mask)
-    if not obs.enabled():
-        return _insert_batch_impl(tree, qb, ql, vals, max_ov, ins_cap,
-                                  max_rounds, engine, mask)
     with obs.span("op.insert"):
+        qb, ql = _queries(tree, qb, ql)
+        vals, mask = _lanes(tree, vals, mask)
+        eng = resolve_engine(engine)
         tree2, rep, rounds = _insert_batch_impl(
-            tree, qb, ql, vals, max_ov, ins_cap, max_rounds, engine, mask)
-        obs.drain_op_report("insert", rep)
-        obs.counter("op.rounds", op="insert").inc(rounds)
+            tree, qb, ql, vals, max_ov, ins_cap, max_rounds, eng, mask)
+        with obs.span("report"):
+            obs.drain_op_report("insert", rep, eng.collect_stats)
+            obs.counter("op.rounds", op="insert").inc(rounds)
     return tree2, rep, rounds
+
+
+def _synced(flag: torch.Tensor) -> bool:
+    """``bool(flag)``: the host waits for the card, under span ``sync``."""
+    with obs.span("sync"):
+        return bool(flag)
 
 
 def _insert_batch_impl(tree: FBTree, qb, ql, vals, max_ov, ins_cap,
@@ -727,25 +742,27 @@ def _insert_batch_impl(tree: FBTree, qb, ql, vals, max_ov, ins_cap,
     max_ov = min(max_ov, qb.shape[0])   # can't overflow more leaves than ops
     if ins_cap is None:
         ins_cap = 4 * tree.config.ns
-    engine = resolve_engine(engine)
     round_fn = _make_insert_round(tree.config, max_ov, ins_cap, engine)
 
-    tree, kid_op, pending, rep = _prepare_insert(tree, qb, ql, vals, engine,
-                                                 mask)
-    if bool(rep.error):
+    with obs.span("prepare"):
+        tree, kid_op, pending, rep = _prepare_insert(tree, qb, ql, vals,
+                                                     engine, mask)
+    if _synced(rep.error):
         raise RuntimeError("insert_batch: key pool capacity exceeded")
     total_splits = torch.zeros((), dtype=I32, device=tree.device)
     rounds = 0
     while rounds < max_rounds:
-        if not bool(pending.any()):
+        if not _synced(pending.any()):
             break
-        tree, pending, n_splits, e = round_fn(tree, kid_op, pending, vals)
-        if bool(e):
+        with obs.span("round"):
+            tree, pending, n_splits, e = round_fn(tree, kid_op, pending,
+                                                  vals)
+        if _synced(e):
             raise RuntimeError("insert_batch: capacity violated (leaf/node/"
                                "root overflow) — grow TreeConfig caps")
         total_splits = total_splits + n_splits
         rounds += 1
-    if bool(pending.any()):
+    if _synced(pending.any()):
         raise RuntimeError("insert_batch: ops still pending after "
                            f"{max_rounds} rounds (capacity exhausted?)")
     return tree, rep._replace(splits=total_splits), rounds
@@ -864,25 +881,23 @@ def range_scan(tree: FBTree, qb, ql, max_items: int = 64,
     (dirty leaves visited) is all-zero under a stats-free engine. Raises
     ``ValueError`` for ``max_items < 1``.
 
-    Telemetry: same obs contract as :func:`lookup_batch` — span
-    ``op.scan``, and ``op.calls``/``op.lanes``/``op.emitted``/
-    ``op.rearranged`` counters drained with one device-to-host copy.
+    Telemetry: same obs contract as :func:`lookup_batch` — root span
+    ``op.scan`` with the stage ``report``, and ``op.calls``/``op.lanes``/
+    ``op.emitted``/``op.rearranged`` counters added into device-side sums.
     """
     if max_items < 1:
         raise ValueError(
             f"range_scan: max_items must be >= 1, got {max_items} — each "
             f"lane emits up to max_items (key, value) pairs")
-    qb, ql = _queries(tree, qb, ql)
-    if not obs.enabled():
-        return _range_scan(tree, qb, ql, max_items, engine)
     with obs.span("op.scan"):
+        qb, ql = _queries(tree, qb, ql)
         out_kid, out_val, emitted, rearranged = _range_scan(
             tree, qb, ql, max_items, engine)
-        em, re = torch.stack([emitted, rearranged]).cpu()
-        obs.counter("op.calls", op="scan").inc()
-        obs.counter("op.lanes", op="scan").inc(int(em.numel()))
-        obs.counter("op.emitted", op="scan").inc(int(em.sum()))
-        obs.counter("op.rearranged", op="scan").inc(int(re.sum()))
+        with obs.span("report"):
+            obs.counter("op.calls", op="scan").inc()
+            obs.counter("op.lanes", op="scan").inc(emitted.numel())
+            obs.drain_counts("scan", {"op.emitted": emitted,
+                                      "op.rearranged": rearranged})
     return out_kid, out_val, emitted, rearranged
 
 
@@ -964,17 +979,15 @@ def rebuild(tree: FBTree) -> Tuple[FBTree, BuildReport]:
     cached from before the barrier (leaf ids, key ids, versions) must be
     re-resolved by a fresh traversal.
 
-    Telemetry: the obs contract of :func:`lookup_batch` — span
-    ``op.rebuild``, counters ``op.calls`` and ``build.n_live`` /
-    ``build.reclaimed`` labelled ``op=rebuild``, drained with one
-    device-to-host copy of the report.
+    Telemetry: the obs contract of :func:`lookup_batch` — root span
+    ``op.rebuild`` with the stage ``report``, counters ``op.calls`` and
+    ``build.n_live`` / ``build.reclaimed`` labelled ``op=rebuild``, added
+    into device-side sums.
     """
-    if not obs.enabled():
-        return _rebuild(tree)
     with obs.span("op.rebuild"):
         tree2, rep = _rebuild(tree)
-        n_live, reclaimed = torch.stack([rep.n_live, rep.reclaimed]).cpu()
-        obs.counter("op.calls", op="rebuild").inc()
-        obs.counter("build.n_live", op="rebuild").inc(int(n_live))
-        obs.counter("build.reclaimed", op="rebuild").inc(int(reclaimed))
+        with obs.span("report"):
+            obs.counter("op.calls", op="rebuild").inc()
+            obs.drain_counts("rebuild", {"build.n_live": rep.n_live,
+                                         "build.reclaimed": rep.reclaimed})
     return tree2, rep

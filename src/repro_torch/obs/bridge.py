@@ -1,22 +1,22 @@
-"""Device-counter export: drain stats NamedTuples into the registry — the
-port's copy of ``repro.obs.bridge``.
+"""Device-counter export: op reports into the registry — the port's copy of
+``repro.obs.bridge``, without its host sync.
 
 The tree's modeled hardware counters (``BranchStats``/``LeafStats`` and the
 op-level ``OpReport`` built from them) are tensors on the tree's device.
-This bridge is the host-side sink for the stats-on path: ONE device-to-host
-copy per report (the fields are flattened into one int64 tensor, which
-makes one ``.cpu()`` call), never one per field, then per-lane counters are
-summed into registry counters named ``tree.<field>`` labeled by op.
+Each batch adds its counts into device-side sums (one int64 vector per op
+and set of counters) and copies nothing to the host, so draining never
+waits for the card. Registry counters named ``tree.<field>`` /
+``op.<outcome>``, labeled by op, are bound to the entries of those sums;
+reading a counter's ``value`` (or exporting it) makes the one
+device-to-host copy (:func:`_host`).
 """
 from __future__ import annotations
 
-from typing import Optional
-
-import numpy as np
+from typing import Dict
 
 from . import registry as _reg
 
-__all__ = ["drain_stats", "drain_op_report"]
+__all__ = ["drain_op_report", "drain_counts"]
 
 # OpReport counter columns that come from BranchStats/LeafStats
 # (DESIGN.md §3); `found` et al. are outcomes, not device counters.
@@ -24,47 +24,65 @@ _REPORT_COUNTERS = ("feat_rounds", "suffix_bs", "key_compares",
                     "lines_touched", "tag_candidates")
 
 
-def _host(report):
-    """The report's fields as numpy arrays, through one ``.cpu()``."""
-    import torch
-    cols = [torch.as_tensor(c) for c in report]
-    flat = torch.cat([c.reshape(-1).to(torch.int64) for c in cols]).cpu()
-    out, at = [], 0
-    for c in cols:
-        n = c.numel()
-        out.append(flat[at:at + n].numpy().reshape(tuple(c.shape)))
-        at += n
-    return out
+def _host(t):
+    """A device vector as host ints, through one ``.cpu()``."""
+    return t.cpu().tolist()
 
 
-def drain_stats(stats, prefix: str = "tree", **labels) -> None:
-    """Drain one stats NamedTuple (``BranchStats``/``LeafStats``) into
-    counters ``<prefix>.<field>``. ``stats=None`` (stats-free engine) is a
-    no-op, as is a disabled registry."""
-    if not _reg.enabled() or stats is None:
+class _DeviceSums:
+    """An int64 vector on the device that every batch adds into; counters
+    bound to its entries read it when they are read."""
+
+    __slots__ = ("t",)
+
+    def __init__(self, t):
+        self.t = t
+
+    def read(self, i: int) -> int:
+        return _host(self.t)[i]
+
+
+# (op, counter names, device) -> the sums behind counters <name>{op=...}
+_SUMS: Dict[tuple, _DeviceSums] = {}
+
+
+def _clear() -> None:
+    _SUMS.clear()
+
+
+def drain_counts(op: str, counts: dict) -> None:
+    """Add one batch's counts into counters ``<name>`` labeled
+    ``op=<op>``: ``counts`` maps each name to a device tensor whose sum is
+    the batch's count. The sums stay on the device; no host sync."""
+    if not _reg.enabled():
         return
-    host = _host(stats)                        # one device->host copy
-    for f, col in zip(stats._fields, host):
-        _reg.counter(f"{prefix}.{f}", **labels).inc(int(col.sum()))
+    import torch
+    names = tuple(counts)
+    cols = [torch.as_tensor(c) for c in counts.values()]
+    key = (op, names, cols[0].device)
+    sums = _SUMS.get(key)
+    if sums is None:
+        sums = _SUMS[key] = _DeviceSums(torch.zeros(
+            (len(names),), dtype=torch.int64, device=cols[0].device))
+        for i, name in enumerate(names):
+            _reg.counter(name, op=op).bind(sums, i)
+    sums.t += torch.stack([c.sum(dtype=torch.int64) for c in cols])
 
 
-def drain_op_report(op: str, rep, batch: Optional[int] = None) -> None:
-    """Drain a ``core.batch_ops.OpReport`` after one batched op: the
-    BranchStats/LeafStats-derived per-lane counters, plus op-level
-    ``op.calls`` / ``op.lanes`` / ``op.found`` / ``op.conflicts`` /
-    ``op.splits`` outcomes, all labeled ``op=<name>``."""
+def drain_op_report(op: str, rep, stats: bool = True) -> None:
+    """Drain a ``core.batch_ops.OpReport`` after one batched op: op-level
+    ``op.calls`` / ``op.lanes`` (host counts) and ``op.found`` /
+    ``op.conflicts`` / ``op.splits`` outcomes, plus, with ``stats`` (the
+    engine collects them), the BranchStats/LeafStats-derived per-lane
+    ``tree.<field>`` counters, all labeled ``op=<name>``. A stats-free
+    engine's report holds zeros there, and they are not drained."""
     if not _reg.enabled() or rep is None:
         return
-    host = _host(rep)                          # one device->host copy
-    d = dict(zip(rep._fields, host))
     _reg.counter("op.calls", op=op).inc()
-    found = d.get("found")
-    if found is not None:
-        _reg.counter("op.lanes", op=op).inc(int(np.size(found)))
-        _reg.counter("op.found", op=op).inc(int(found.sum()))
-    for f in ("conflicts", "splits"):
-        if f in d:
-            _reg.counter(f"op.{f}", op=op).inc(int(d[f]))
-    for f in _REPORT_COUNTERS:
-        if f in d:
-            _reg.counter(f"tree.{f}", op=op).inc(int(d[f].sum()))
+    _reg.counter("op.lanes", op=op).inc(rep.found.numel())
+    counts = {"op.found": rep.found, "op.conflicts": rep.conflicts,
+              "op.splits": rep.splits}
+    if stats:
+        counts.update((f"tree.{f}", getattr(rep, f))
+                      for f in _REPORT_COUNTERS)
+    drain_counts(op, counts)

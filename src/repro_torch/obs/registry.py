@@ -61,13 +61,15 @@ def disable() -> None:
 
 
 def reset() -> None:
-    """Clear every metric and the event log (per-test isolation). The
-    enabled flag is left as-is."""
+    """Clear every metric, the event log and the device-side counter sums
+    (per-test isolation). The enabled flag is left as-is."""
     # import the submodule explicitly: the package re-exports an `events()`
     # *function* that shadows the module attribute of the same name
+    from .bridge import _clear as _clear_sums
     from .events import _clear
     _METRICS.clear()
     _clear()
+    _clear_sums()
 
 
 def _labelkey(labels: dict) -> Tuple[Tuple[str, str], ...]:
@@ -77,17 +79,28 @@ def _labelkey(labels: dict) -> Tuple[Tuple[str, str], ...]:
 # -------------------------------------------------------------- metrics
 
 class Counter:
-    """Monotonic counter."""
+    """Monotonic counter: host increments, plus the device-side sums it is
+    bound to (``obs.bridge``), which are read only when ``value`` is."""
 
     kind = "counter"
 
     def __init__(self, name: str, labels: Tuple[Tuple[str, str], ...] = ()):
         self.name = name
         self.labels = labels
-        self.value = 0
+        self._n = 0
+        self._sources: List[tuple] = []
 
     def inc(self, n: int = 1) -> None:
-        self.value += int(n)
+        self._n += int(n)
+
+    def bind(self, source, i: int) -> None:
+        """Count entry ``i`` of ``source`` too: an object whose
+        ``read(i)`` returns an int (a device vector the bridge adds into)."""
+        self._sources.append((source, i))
+
+    @property
+    def value(self) -> int:
+        return self._n + sum(src.read(i) for src, i in self._sources)
 
 
 class Gauge:

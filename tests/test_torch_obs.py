@@ -80,15 +80,92 @@ def test_drained_counters_match_report_totals():
     assert obs.get_metric("op.calls", op="lookup").value == 1
 
 
-def test_drain_stats_sums_each_field():
-    from repro_torch.core.branch import BranchStats
+def test_counters_add_on_the_device_with_no_copy_a_batch(monkeypatch):
+    """Drained counters equal the reports' totals, with no device-to-host
+    copy while the ops run (the bridge's one copy raises until they are
+    read); a stats-free engine drains no ``tree.*`` counter."""
+    from repro_torch.obs import bridge
+    tree, base = _tree()
+    q = _keyset([int(x) for x in base[:64]] + [3, 5])
+    vals = np.arange(66, dtype=np.int32)
+    eng = TraversalEngine("torch", "tuple", collect_stats=True)
     obs.enable()
-    st = BranchStats(*(torch.arange(4, dtype=torch.int32) * k
-                       for k in range(1, 6)))
-    obs.drain_stats(st, op="x")
-    for k, f in enumerate(st._fields, 1):
-        assert obs.get_metric(f"tree.{f}", op="x").value == 6 * k
-    obs.drain_stats(None, op="x")            # stats-free engine: no-op
+    real = bridge._host
+    monkeypatch.setattr(bridge, "_host", lambda t: pytest.fail("host copy"))
+    _, r1 = B.lookup_batch(tree, q.bytes, q.lens, engine=eng)
+    _, r2 = B.lookup_batch(tree, q.bytes, q.lens, engine=eng)
+    _, r3 = B.update_batch(tree, q.bytes, q.lens, vals, engine=eng)
+    B.update_batch(tree, q.bytes, q.lens, vals,
+                   engine=TraversalEngine("torch", collect_stats=False))
+    monkeypatch.setattr(bridge, "_host", real)
+    for f in ("feat_rounds", "key_compares", "tag_candidates"):
+        assert obs.get_metric(f"tree.{f}", op="lookup").value == int(
+            getattr(r1, f).sum() + getattr(r2, f).sum()), f
+        assert obs.get_metric(f"tree.{f}", op="update").value == int(
+            getattr(r3, f).sum()), f
+    assert obs.get_metric("op.found", op="lookup").value == 128
+    assert obs.get_metric("op.found", op="update").value == 128
+    assert obs.get_metric("op.calls", op="update").value == 2
+    assert obs.get_metric("op.lanes", op="update").value == 132
+
+
+def _names(rec):
+    return [rec.name(i) for i in range(len(rec))]
+
+
+def test_update_records_its_stages_in_order():
+    tree, base = _tree()
+    q = _keyset([int(x) for x in base[:32]])
+    with obs.recording() as rec:
+        B.update_batch(tree, q.bytes, q.lens, np.arange(32, dtype=np.int32),
+                       engine=TraversalEngine("fused"))
+    assert _names(rec) == ["op.update"] + [f"op.update.{s}" for s in (
+        "dedupe", "descend_probe", "clone", "write", "report")]
+    root = rec.record(0)
+    assert root[1:3] == (-1, 0)
+    prev_end = root[3]
+    for i in range(1, len(rec)):
+        _, parent, r, t0, t1 = rec.record(i)
+        assert (parent, r) == (0, 0)
+        assert prev_end <= t0 <= t1 <= root[4]
+        prev_end = t1
+    # nothing but the log: no registry, no profiler range
+    assert obs.all_metrics() == [] and not obs.enabled()
+
+
+def test_recording_changes_no_output_and_ends_with_its_block():
+    """Outputs are bit-identical with the log on and off; an insert
+    records its prepare, round and sync stages; spans after the block
+    record nothing."""
+    tree, base = _tree()
+    q = _keyset([int(x) for x in base[:40]] + list(range(7, 7 + 24 * 97, 97)))
+    vals = np.arange(64, dtype=np.int32)
+
+    def calls():
+        v, rl = B.lookup_batch(tree, q.bytes, q.lens)
+        t2, ru = B.update_batch(tree, q.bytes, q.lens, vals)
+        t3, ri, rounds = B.insert_batch(tree, q.bytes, q.lens, vals,
+                                        max_ov=2)
+        return [v, t2.arrays.leaf_val, t3.arrays.leaf_keyid, rounds,
+                *rl, *ru, *ri]
+
+    off = calls()
+    with obs.recording() as rec:
+        on = calls()
+    assert len(off) == len(on)
+    for a, b in zip(off, on):
+        assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else a == b)
+    names = _names(rec)
+    n = len(rec)
+    assert rec.name(next(i for i in range(n) if rec.record(i)[1] < 0)
+                    ) == "op.lookup"
+    for stage in ("prepare", "prepare.dedupe", "round", "sync", "report"):
+        assert f"op.insert.{stage}" in names, stage
+    assert names.count("op.insert.round") == off[3] >= 1
+    with obs.span("after"):
+        pass
+    assert len(rec) == n
 
 
 def test_histogram_quantiles_and_prometheus_export():
