@@ -20,7 +20,13 @@ the hybrid family (zamba2-7b, K5 at head dim 112 in its shared attention):
 
 1. the card's name and power limit;
 2. build of every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
-   per source, sm_90a, all at once) into ``build/kernels/``;
+   per source, sm_90a, all at once) into ``build/kernels/``; then
+   ``dedupe``: the write path's dedupe kernel against its plain version
+   bit for bit on every batch of :func:`dedupe_cases` (a zipfian batch of
+   4,194,304 lanes among them) and with a table of B entries, and its time
+   beside the plain sort chain's (:func:`run_dedupe`); every write op of
+   the phases below dedupes through it (the kernels line counts its
+   launches, by phase);
 3. ``ycsb``: YCSB-like keys (``user`` + 19 digits, width 24), 10,000,000 of
    them, planned as ``benchmarks/common.py::build_tree`` plans (``max_keys
    = 2.5 n``: ns=64, fs=4, 6 levels): every key is looked up once in
@@ -421,6 +427,70 @@ def _exact(what, names, got, want) -> int:
                                  f"{diff}")
         worst = max(worst, diff)
     return worst
+
+
+DEDUPE_LANES = 4_194_304     # ycsb-a's update batch
+
+
+def dedupe_cases(seed: int, lanes: int = DEDUPE_LANES) -> dict:
+    """Write batches for the dedupe kernel, ``name -> (qb u8 [B, L], ql
+    int32 [B])`` as numpy: ``zipf``, ``lanes`` YCSB keys drawn zipfian
+    (0.99) from ``lanes // 4`` keys, as skewed as ycsb-a's update batch
+    (the hottest key takes ~6% of the lanes); ``distinct``, every lane its own key;
+    ``one_key``, one key in every lane; ``length_only``, keys whose rows are
+    equal and whose lengths differ (the bytes past a length are 0), each
+    three times; ``width21``, ``width28`` and ``width32``, zipfian rows cut
+    or zero-padded to widths read in bytes (21, 28) and in 8-byte words
+    (32, as 24); ``single``, one lane."""
+    rng = np.random.default_rng(seed)
+    n_keys = max(lanes // 4, 64)
+    kb, kl = ycsb_keys(n_keys, seed)
+    zi = zipf_indices(rng, n_keys, lanes)
+    small = min(lanes, 65_536)
+    m = small // 9
+    rows = kb[rng.choice(n_keys, m, replace=False)]
+    cut = rng.integers(1, 21, m)
+    rows[np.arange(kb.shape[1])[None, :] >= cut[:, None]] = 0
+    lo = np.repeat(np.arange(m), 9)
+    lo_len = (cut[lo] + np.tile(np.repeat(np.arange(3), 3), m)).astype(np.int32)
+    lo_perm = rng.permutation(lo.size)
+    zs = zi[:small]
+    wide = np.zeros((small, 32), np.uint8)
+    wide[:, :24] = kb[zs]
+    return {
+        "zipf": (kb[zi], kl[zi]),
+        "distinct": (kb[rng.permutation(n_keys)[:small]],
+                     np.full(min(small, n_keys), 23, np.int32)),
+        "one_key": (np.repeat(kb[:1], small, 0), np.full(small, 23, np.int32)),
+        "length_only": (rows[lo[lo_perm]], lo_len[lo_perm]),
+        "width21": (np.ascontiguousarray(kb[zs, :21]),
+                    np.full(small, 21, np.int32)),
+        "width28": (np.pad(kb[zs], ((0, 0), (0, 4))), kl[zs]),
+        "width32": (wide, kl[zs]),
+        "single": (kb[:1], kl[:1]),
+    }
+
+
+def dedupe_vs_plain(qb, ql, capacity=None) -> dict:
+    """The dedupe kernel on the card against the plain version
+    (``batch_ops.dedupe_last_wins`` in lane order) on the CPU, bit for bit:
+    winners and conflicts (raises on a difference). The kernel runs through
+    the wrapper the write ops call (``ops.dedupe_last_lanes``), or, with
+    ``capacity``, through the binding with a table of that size, to force
+    probe chains. Returns the lanes, conflicts, probe steps, capacity and
+    the largest difference found (0)."""
+    from repro_torch.kernels.dedupe import cuda, ops, ref
+    if capacity is None:
+        w, c, p = ops.dedupe_last_lanes(qb, ql, count_probes=True)
+    else:
+        w, c, p = cuda.launch(qb, ql, capacity=capacity, count_probes=True)
+    pw, pc = ref.dedupe_ref(qb.cpu(), ql.cpu())
+    err = _exact("dedupe", ["winners", "conflicts"], [w.cpu(), c.cpu()],
+                 [pw, pc])
+    B = qb.shape[0]
+    return {"lanes": B, "conflicts": int(c), "probes": int(p),
+            "capacity": capacity or cuda.table_capacity(B),
+            "max_abs_err": err}
 
 
 def tree_bytes(tree) -> int:
@@ -1789,6 +1859,49 @@ def timing(tree, qb, ql, runs: int):
     for L in (tree.config.key_width, URL_WIDTH):
         emit({"metric": "k1_design", **k1_design(tree.config.ns, L)})
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def run_dedupe(*, seed: int, runs: int, lanes: int = DEDUPE_LANES) -> dict:
+    """The write path's dedupe kernel (``csrc/dedupe.cu``) against its plain
+    version on every batch of :func:`dedupe_cases`, and with a table of
+    ``B`` entries (probe chains) on ``zipf`` and ``distinct``; then, on
+    ``zipf``, its device time (CUDA events; warm, and with the L2 flushed)
+    beside the plain sort chain's on the card and the byte bound: the key
+    batch read once and the winners written once, at 3.35 TB/s."""
+    from repro_torch.kernels.dedupe import cuda, ref
+    checks = {}
+    for name, (qb, ql) in dedupe_cases(seed, lanes).items():
+        q, l = torch.from_numpy(qb).cuda(), torch.from_numpy(ql).cuda()
+        checks[name] = dedupe_vs_plain(q, l)
+        if name in ("zipf", "distinct"):
+            full = 1 << (q.shape[0] - 1).bit_length()
+            checks[name + "_small_table"] = dedupe_vs_plain(q, l, capacity=full)
+        if name == "zipf":
+            zipf = (q, l)
+    torch.cuda.synchronize()
+    q, l = zipf
+    B, L = q.shape
+    kern = lambda: cuda.launch(q, l)
+    plain = lambda: ref.dedupe_ref(q, l)
+    for _ in range(3):
+        kern(), plain()
+    k_ms, k_all = _event_ms(kern, runs)
+    f_ms, _ = _event_ms(kern, runs, flush=True)
+    p_ms, _ = _event_ms(plain, runs)
+    b_bytes = B * (L + 5)
+    b_ms = b_bytes / 3.35e12 * 1e3
+    out = {"phase": "dedupe", "checks": checks,
+           "kernel_vs_plain_max_abs_err": max(
+               c["max_abs_err"] for c in checks.values()),
+           "lanes": B, "width": L,
+           "ms": k_ms, "min_ms": min(k_all), "max_ms": max(k_all),
+           "l2_flushed_ms": f_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+           "bound_by": "bytes", "bound_bytes": b_bytes,
+           "bound_share": b_ms / k_ms, "runs": runs,
+           "dedupe_design": {w: cuda.kernel_attributes(w)
+                             for w in cuda.WORDS}}
+    emit(out)
+    return out
 
 
 def k1_design(ns: int, L: int) -> dict:
@@ -5132,6 +5245,15 @@ def main(argv=None) -> int:
         print(f"nvcc {name}:\n{log.strip()}", flush=True)
 
     dev = "cuda"
+    from repro_torch.kernels.dedupe import ops as dedupe_ops
+    dd_paths = {}                     # dedupe launches through the wrapper
+
+    def dd_mark(path):
+        dd_paths[path] = dedupe_ops.LAUNCHES - sum(dd_paths.values())
+
+    dedupe_ops.LAUNCHES = 0
+    dd_out = run_dedupe(seed=args.seed, runs=args.runs)
+    dd_mark("dedupe")
     kb, kl = ycsb_keys(args.ycsb_keys, args.seed)
     tree, (qb, ql), main_out = run_phase("ycsb", kb, kl, ns=64,
                                          batch=args.batch, seed=args.seed,
@@ -5150,9 +5272,11 @@ def main(argv=None) -> int:
                          lval, seed=args.seed, device=dev, batch=args.batch)]
     fqb, fql = f_outs[0][1]
     del ycsb2, lkb, lkl, lval
+    dd_mark("ycsb")
     torch.cuda.empty_cache()
     sh_out = run_shard(tree, kb, kl, seed=args.seed, device=dev,
                        batch=args.batch, runs=args.runs)
+    dd_mark("shard")
     del kb, kl
     torch.cuda.empty_cache()
     ukb, ukl = url_keys(args.url_keys, args.seed)
@@ -5176,6 +5300,7 @@ def main(argv=None) -> int:
                                stale="double")
     a_out = run_append(int_tree, ikb, seed=args.seed, device=dev)
     del int_tree
+    dd_mark("url, int")
 
     t = timing(tree, qb, ql, args.runs)
     st = scan_timing(clean, dirty, sqb, sql, 50, args.runs)
@@ -5184,10 +5309,12 @@ def main(argv=None) -> int:
     del tree, clean, dirty, rebuilt, qb, ql, sqb, sql, fqb, fql
     torch.cuda.empty_cache()
     s_out, k5t, s_log = run_serve(seed=args.seed, runs=args.runs)
+    dd_mark("serve")
     k5_checks = [*s_out["k5_real"].values(), *s_out["k5_sweep"].values()]
     shc_out = run_shard_cache(s_log, n_pages=s_out["serve_config"]["n_pages"],
                               block_tokens=s_out["serve_config"][
                                   "block_tokens"], device=dev)
+    dd_mark("shard-cache")
     del s_log
     torch.cuda.empty_cache()
     t_out = run_train(seed=args.seed, runs=args.runs)
@@ -5208,9 +5335,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     p_out = run_parallel(seed=args.seed, train_first_loss=t_out["losses"][0],
                          runs=args.runs)
+    dd_mark("models")
     x_out = run_examples()
+    dd_mark("examples")
     torch.cuda.empty_cache()
     d_out = run_dryrun(seed=args.seed)
+    dd_mark("dryrun")
     k5_rows = {"vlm_256_256": v_out["k5_timing"]["served"],
                "vlm_256_256_8k": v_out["k5_timing"]["long"],
                "whisper_encoder_64_64": w_out["k5_timing"]["encoder"],
@@ -5260,6 +5390,18 @@ def main(argv=None) -> int:
         "max_abs_err": max(f["k4_vs_plain_max_abs_err"] for f in factor),
         "ms": lt["k4"]["ms"], "plain_ms": lt["k4"]["plain_ms"],
         "bound_ms": lt["k4"]["bound_ms"], "bound_by": lt["k4"]["bound_by"],
+        "library_ms": None}, {
+        "name": "dedupe", "route": "cuda",
+        "source": "src/repro_torch/csrc/dedupe.cu",
+        "replaces": None,
+        "launches": dedupe_ops.LAUNCHES,
+        "launches_by_path": dd_paths,
+        "per": "one write op (update, remove, insert): three launches "
+               "(fill, insert, resolve); timed on a zipfian batch of "
+               f"{dd_out['lanes']} lanes",
+        "max_abs_err": dd_out["kernel_vs_plain_max_abs_err"],
+        "ms": dd_out["ms"], "plain_ms": dd_out["plain_ms"],
+        "bound_ms": dd_out["bound_ms"], "bound_by": dd_out["bound_by"],
         "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",

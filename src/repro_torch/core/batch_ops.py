@@ -240,19 +240,24 @@ def lookup_batch(tree: FBTree, qb, ql, sibling_check: bool = True,
     return val, rep
 
 
-def _point_write_lanes(tree: FBTree, qb, ql, engine, mask):
+def _point_write_lanes(tree: FBTree, qb, ql, engine, mask, op: str):
     """Dedupe + descend + probe shared by update, remove and insert, as
-    the stages ``dedupe`` and ``descend_probe``: returns the dedupe
-    winners, the lanes that write in place (``do`` = winners whose key was
+    the stages ``dedupe`` and ``descend_probe``. The dedupe is
+    ``kernels/dedupe`` (the last lane of each key wins: a hash table on the
+    card, :func:`dedupe_last_wins` on the CPU); with ``obs.enable()`` the
+    kernel's probe steps drain into ``op.dedupe_probes{op=<op>}``. Returns
+    the dedupe winners, the lanes that write in place (``do`` = winners whose key was
     found), their scatter coordinates (the other lanes point at the
     scratch leaf) and the report inputs. The coordinates are made inside
     ``descend_probe``, so that the descent's int32 leaf ids and slots are
     gone before a caller clones and scatters (the update's memory peak)."""
-    B = qb.shape[0]
+    from ..kernels.dedupe import ops as dedupe_ops
     dump = tree.arrays.leaf_occ.shape[0] - 1
     with obs.span("dedupe"):
-        winners, conflicts = dedupe_last_wins(
-            qb, ql, torch.arange(B, dtype=I32, device=qb.device))
+        winners, conflicts, probes = dedupe_ops.dedupe_last_lanes(
+            qb, ql, count_probes=obs.enabled())
+        if probes is not None:
+            obs.drain_counts(op, {"op.dedupe_probes": probes})
         if mask is not None:
             winners = winners & mask
     with obs.span("descend_probe"):
@@ -272,9 +277,9 @@ def update_batch(tree: FBTree, qb, ql, vals,
     ``mask`` (bool [B], optional) is the routed-op hook (DESIGN.md §7):
     lanes with ``mask=False`` never write. ``found`` is reported for every
     lane regardless of mask. Same obs contract as :func:`lookup_batch`:
-    root span ``op.update`` with the stages ``dedupe``
-    (:func:`dedupe_last_wins`), ``descend_probe`` (with the in-place lanes
-    and their scatter coordinates), ``clone`` (of ``leaf_val``), ``write``
+    root span ``op.update`` with the stages ``dedupe`` (``kernels/dedupe``),
+    ``descend_probe`` (with the in-place lanes and their scatter
+    coordinates), ``clone`` (of ``leaf_val``), ``write``
     (the masked scatter) and ``report``.
     """
     with obs.span("op.update"):
@@ -282,7 +287,7 @@ def update_batch(tree: FBTree, qb, ql, vals,
         vals, mask = _lanes(tree, vals, mask)
         eng = resolve_engine(engine)
         _, do, at, found, bstats, lstats, conflicts = _point_write_lanes(
-            tree, qb, ql, eng, mask)
+            tree, qb, ql, eng, mask, "update")
         with obs.span("clone"):
             lv = tree.arrays.leaf_val.clone()
         with obs.span("write"):
@@ -306,7 +311,7 @@ def remove_batch(tree: FBTree, qb, ql,
             mask = torch.as_tensor(mask, device=tree.device).to(torch.bool)
         eng = resolve_engine(engine)
         _, do, at, found, bstats, lstats, conflicts = _point_write_lanes(
-            tree, qb, ql, eng, mask)
+            tree, qb, ql, eng, mask, "remove")
         a = tree.arrays
         with obs.span("clone"):
             occ, kid, ver = (a.leaf_occ.clone(), a.leaf_keyid.clone(),
@@ -334,7 +339,7 @@ def _prepare_insert(tree: FBTree, qb, ql, vals, engine, mask):
     a = tree.arrays
     kdump = a.key_bytes.shape[0] - 1
     winners, upd, at, found, bstats, lstats, conflicts = _point_write_lanes(
-        tree, qb, ql, engine, mask)
+        tree, qb, ql, engine, mask, "insert")
     lv = a.leaf_val.clone()
     _put(lv, at, vals, upd)
 

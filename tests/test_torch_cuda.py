@@ -1,14 +1,17 @@
 """The CUDA kernels on a card: each held against its plain torch version
-(bit for bit for the tree kernels K1-K4, within the stated bound for the
-flash-attention forward K5), launched once per call, and strict about its
-inputs; and the mutations, the device build and the rebuild on the card
-equal to the same calls on the CPU.
+(bit for bit for the tree kernels K1-K4 and the write path's dedupe
+kernel, within the stated bound for the flash-attention forward K5),
+launched once per call, and strict about its inputs; and the mutations,
+the device build and the rebuild on the card equal to the same calls on
+the CPU.
 
 Every test here is marked ``cuda`` and skips where no card is present (a
 CUDA kernel has no CPU mode). The file imports no JAX, so it runs on a
 machine with a card and no JAX:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +20,8 @@ from repro_torch.core import batch_ops as B
 from repro_torch.core.fbtree import TreeConfig, bulk_build
 from repro_torch.core.keys import KeySet
 from repro_torch.core.traverse import TraversalEngine
+from repro_torch.kernels.dedupe import cuda as ddcuda
+from repro_torch.kernels.dedupe import ops as dd
 from repro_torch.kernels.fused_descent import cuda as kcuda
 from repro_torch.kernels.fused_descent import ops
 from repro_torch.kernels.feature_branch import cuda as k3cuda
@@ -26,10 +31,11 @@ from repro_torch.kernels.leaf_probe import cuda as k4cuda
 from repro_torch.kernels.leaf_probe import ops as k4
 from repro_torch.shard import place_shard
 
-from chip_smoke import (K5_BOUND, K5_CASES, int_keys, k3_vs_plain,
-                        k4_vs_plain, k5_grad_check, k5_sweep, k5_vs_plain,
-                        kernel_vs_plain, scan_kernel_vs_plain, stale_parents,
-                        train_parity, tree_diffs, url_keys, ycsb_keys)
+from chip_smoke import (K5_BOUND, K5_CASES, dedupe_cases, dedupe_vs_plain,
+                        int_keys, k3_vs_plain, k4_vs_plain, k5_grad_check,
+                        k5_sweep, k5_vs_plain, kernel_vs_plain,
+                        scan_kernel_vs_plain, stale_parents, train_parity,
+                        tree_diffs, url_keys, ycsb_keys, zipf_indices)
 from test_torch_level_edges import K3_SHAPES, k3_edge_inputs, k4_edge_inputs
 from test_torch_tie_keys import tie_scan_tree
 
@@ -1025,3 +1031,108 @@ def test_cuda_train_step_matches_cpu(cuda_device):
     res, fails = train_parity(0, cuda_device)
     assert not fails, (fails, res)
     assert res["k5_launches"] == 4
+
+
+# ------------------------------------------------------------------ dedupe
+
+@functools.lru_cache(maxsize=1)
+def _dedupe_batches():
+    """The batches of ``chip_smoke.dedupe_cases``; ``zipf`` at ycsb-a's
+    4,194,304 lanes. Made once, and only where a card is present."""
+    return dedupe_cases(seed=11)
+
+
+def _dedupe_batch(name):
+    return tuple(torch.from_numpy(a).cuda() for a in _dedupe_batches()[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ("zipf", "distinct", "one_key",
+                                  "length_only", "width21", "width28",
+                                  "width32", "single"))
+def test_cuda_dedupe_matches_plain(cuda_device, name):
+    """The dedupe kernel's winners and conflicts equal the plain version's
+    (``batch_ops.dedupe_last_wins`` in lane order, on the CPU) bit for bit:
+    ycsb-a's zipfian batch, all lanes distinct, one key in every lane, keys
+    that differ only in length, each load width, one lane."""
+    out = dedupe_vs_plain(*_dedupe_batch(name))
+    torch.cuda.synchronize()
+    if name == "one_key":
+        assert out["conflicts"] == out["lanes"] - 1 and out["probes"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ("zipf", "distinct", "length_only"))
+def test_cuda_dedupe_with_forced_collisions_matches_plain(cuda_device, name):
+    """A table of B entries (the test-only capacity; the full table of
+    ``distinct`` is the worst case of linear probing) forces long probe
+    chains: the answers stay those of the plain version."""
+    qb, ql = _dedupe_batch(name)
+    B = qb.shape[0]
+    out = dedupe_vs_plain(qb, ql, capacity=1 << (B - 1).bit_length())
+    torch.cuda.synchronize()
+    assert out["probes"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_dedupe_wrapper_counts_and_refuses(cuda_device):
+    qb, ql = _dedupe_batch("width28")
+    n0 = dd.LAUNCHES
+    w, c, p = dd.dedupe_last_lanes(qb, ql)
+    assert dd.LAUNCHES == n0 + 3 and p is None
+    assert w.is_cuda and w.dtype == torch.bool and c.dtype == torch.int32
+    w2, c2, p2 = dd.dedupe_last_lanes(qb, ql, count_probes=True)
+    assert torch.equal(w, w2) and torch.equal(c, c2)
+    assert p2.dtype == torch.int64 and int(p2) >= 0
+    with pytest.raises(ValueError):
+        dd.dedupe_last_lanes(qb, ql.cpu())
+    with pytest.raises(ValueError):
+        ddcuda.launch(qb, ql, capacity=qb.shape[0] // 2)
+    empty = ddcuda.launch(qb[:0], ql[:0], count_probes=True)
+    assert empty[0].numel() == 0 and int(empty[1]) == 0 and int(empty[2]) == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_masked_update_and_absent_duplicate_inserts_match_cpu(
+        cuda_device):
+    """An update with repeated keys under a routed mask, an insert whose
+    absent keys repeat in the batch (the new key takes its last lane's
+    value and one key id) and a masked remove, on the card (the dedupe
+    kernel, three launches an op) and on the CPU (the sort): bit-equal
+    trees and reports."""
+    kb, kl = ycsb_keys(7000, 21)
+    rng = np.random.default_rng(21)
+    rows = np.sort(rng.choice(7000, 4000, replace=False))
+    fresh = np.setdiff1d(np.arange(7000), rows)
+    cfg = TreeConfig.plan(max_keys=12000, key_width=24)
+    card = bulk_build(cfg, KeySet(kb[rows], kl[rows]),
+                      np.arange(4000, dtype=np.int32), target="cuda")
+    upd = rows[zipf_indices(rng, 4000, 8192)]
+    ins = rng.permutation(np.concatenate([
+        fresh[zipf_indices(rng, fresh.size, 2048)],
+        rows[rng.integers(0, 4000, 1024)]]))
+    rm = rows[zipf_indices(rng, 4000, 2048)]
+    upd_mask = rng.random(upd.size) < 0.7
+    rm_mask = rng.random(rm.size) < 0.5
+    out = []
+    for t in (card, place_shard(card, "cpu")):
+        eng = TraversalEngine("fused")
+        n0 = dd.LAUNCHES
+        t, ru = B.update_batch(t, kb[upd], kl[upd],
+                               np.arange(upd.size, dtype=np.int32),
+                               engine=eng, mask=upd_mask)
+        t, ri, rounds = B.insert_batch(t, kb[ins], kl[ins],
+                                       np.arange(ins.size, dtype=np.int32)
+                                       + 10_000, engine=eng)
+        t, rr = B.remove_batch(t, kb[rm], kl[rm], engine=eng, mask=rm_mask)
+        out.append((t, (ru, ri, rr), rounds, dd.LAUNCHES - n0))
+    (tc, rc, nc, lc), (th, rh, nh, lh) = out
+    assert (lc, lh) == (9, 0)
+    assert tree_diffs(tc, th) == [] and nc == nh
+    for x, y in zip(rc, rh):
+        for f in x._fields:
+            assert torch.equal(getattr(x, f).cpu(), getattr(y, f)), f
+    assert min(int(r.conflicts) for r in rc) > 0
+    new = np.unique(fresh[np.isin(fresh, ins)])
+    assert int(tc.arrays.key_count) == 4000 + new.size
