@@ -70,7 +70,17 @@ the hybrid family (zamba2-7b, K5 at head dim 112 in its shared attention):
     ``int-ns128-append``: 20,480 keys appended above the maximum in batches
     of 4,096 (leaf splits and inner inserts), found, and K2 held against
     the plain version inside the appended range;
-11. ``shard``: the ycsb keys in 4 range shards on the card (DESIGN.md
+11. ``tpcc``: TPC-C's customer-name index (``bench/keysets/tpcc_customer.py``:
+    10,020,000 keys of 32-40 bytes behind 8-24 shared ones, long equal
+    feature runs) built on the card as the benchmark's ``tpcc-name-10M``
+    builds it; every key looked up once through ``lookup_batch`` (engine
+    ``"fused"``, stats off) in batches of 1,048,576, the benchmark's, one
+    lane in ten with its last byte made one no key holds: present keys
+    found with their record id, the others absent; K1's S = 2 build (as
+    the library picks it) launched once a batch, counted by ``LAUNCHES``
+    and by build in ``obs``; K1 == the plain version bit for bit on the
+    first full batch and the ragged last; K1's time on a full batch;
+12. ``shard``: the ycsb keys in 4 range shards on the card (DESIGN.md
     §7 at ``benchmarks/shard.py``'s largest shard count; every shard
     planned like the ycsb tree, ``sharded_build(device=True)``), held
     against the unsharded tree op for op: each shard == the device build of
@@ -86,13 +96,13 @@ the hybrid family (zamba2-7b, K5 at head dim 112 in its shared attention):
     live key found, each shard == the device build of its partition of the
     live set. Times: sharded and unsharded ``lookup_batch`` and
     ``range_scan`` (host clock), ``rebalance_s``, peak memory;
-12. timing with CUDA events: K1 on the main lookup batch; K2 on the last
+13. timing with CUDA events: K1 on the main lookup batch; K2 on the last
     scan batch of the dirtied and of the clean tree; K3 at every level and
     K4 on the factor batch of the rebuilt tree, warm and with the L2
     flushed, and their design lines; the plain versions;
     ``lookup_batch`` (engines ``"fused"`` and ``"cuda"``), ``range_scan``
     and ``insert_batch`` end to end (host clock); each kernel's bound;
-13. ``serve``: the port's ``Engine`` on ``get_config("yi-9b")`` (48 layers,
+14. ``serve``: the port's ``Engine`` on ``get_config("yi-9b")`` (48 layers,
     d_model 4096, GQA 32/4, vocab 64,000; bf16 weights from
     ``lm.init_params`` under a generator seeded with ``--seed``) serving
     16 requests of 3,072 tokens (``launch/serve.py::make_requests``: a
@@ -112,11 +122,11 @@ the hybrid family (zamba2-7b, K5 at head dim 112 in its shared attention):
     per request, decode step ms, new tokens/s, request latency p50/p99,
     peak device memory, and K5's time, bound, plain time and
     ``scaled_dot_product_attention``'s time;
-14. ``shard-cache``: the serve phase's recorded cache calls replayed on a
+15. ``shard-cache``: the serve phase's recorded cache calls replayed on a
     ``PrefixCache(n_shards=4)`` with the ``"fused"`` engine on the card and
     on the CPU: every answer equal to the other's and to the unsharded
     cache's, pools, stats and every shard's arrays equal;
-15. ``train``: ``launch/train.py::train_loop`` on yi-9b at full width, its
+16. ``train``: ``launch/train.py::train_loop`` on yi-9b at full width, its
     depth cut to 8 layers (:data:`TRAIN_RUN`), AdamW, 12 steps of 2 x 4,096
     tokens in 2 microbatches. K5 must launch once per layer, microbatch and
     step; the loss must stay finite and fall; on layer 0's real q, k, v,
@@ -128,7 +138,7 @@ the hybrid family (zamba2-7b, K5 at head dim 112 in its shared attention):
     checkpoint that restores equal. It prints the step's ms, tokens/s,
     ``train_mfu``, peak device memory, and K5's forward and the recompute
     backward's ms at the training shape;
-16. ``serve-moe``: the MoE family at full width (:data:`SERVE_MOE`). (a)
+17. ``serve-moe``: the MoE family at full width (:data:`SERVE_MOE`). (a)
     llama4-scout cut to 8 layers through the port's ``Engine`` (8 requests
     of the serve mix, gshard at capacity factor 1.25): the checks of
     ``serve`` (every request done, K5 8 times a prefill, hits and
@@ -148,7 +158,7 @@ the hybrid family (zamba2-7b, K5 at head dim 112 in its shared attention):
     (MoE, MLA, MTP) within :data:`TRAIN_STEP_BOUND`. It prints prefill ms
     a request, decode step ms, new tokens/s, peak memory and each
     dispatch's ms;
-17. ``serve-vlm``: paligemma-3b as published (:data:`SERVE_VLM`; 18
+18. ``serve-vlm``: paligemma-3b as published (:data:`SERVE_VLM`; 18
     layers, heads of 256, 256 image patches before the text under the
     prefix-LM mask) through ``lm.prefill`` (4 x (256 + 2,048) tokens) and
     32 ``lm.decode_step`` calls: K5's (256, 256) build once a layer a
@@ -158,13 +168,13 @@ the hybrid family (zamba2-7b, K5 at head dim 112 in its shared attention):
     forward, the SMOKE model on the card against the CPU
     (:data:`FAMILY_PARITY_BOUND`) and a SMOKE train step
     (:data:`TRAIN_STEP_BOUND`);
-18. ``serve-whisper``: whisper-medium as configured
+19. ``serve-whisper``: whisper-medium as configured
     (:data:`SERVE_WHISPER`; 24 + 24 layers) through ``lm.prefill`` (2
     requests of 32,768 frames and 256 tokens: K5 without a mask at
     32,768^2 in every encoder layer and at S != T in every cross
     attention) and 32 decode steps, with the checks of ``serve-vlm`` (K5's
     encoder check on the first and last 1,024 rows of layer 0);
-19. ``serve-mamba``: falcon-mamba-7b as configured (:data:`SERVE_MAMBA`;
+20. ``serve-mamba``: falcon-mamba-7b as configured (:data:`SERVE_MAMBA`;
     64 mamba1 layers, no attention: K5 launches 0) through ``lm.prefill``
     (4 x 2,048 tokens; the chunked selective scan in torch ops) and 32
     decode steps, with decode against forward (on the float32 draws of the
@@ -172,13 +182,13 @@ the hybrid family (zamba2-7b, K5 at head dim 112 in its shared attention):
     on the card against the CPU and a SMOKE train step; layer 0's mixer
     timed with CUDA events, split into its input projections, the scan and
     its output;
-20. ``serve-zamba``: zamba2-7b as configured (:data:`SERVE_ZAMBA`; 13
+21. ``serve-zamba``: zamba2-7b as configured (:data:`SERVE_ZAMBA`; 13
     groups of 5 mamba2 layers, each followed by the shared attention+MLP
     block with its LoRA, then 3) through ``lm.prefill`` (4 x 3,072 tokens:
     K5 at head dim 112, the (128, 128) build, once an occurrence, 13
     launches a prefill) and 32 decode steps, with the checks of
     ``serve-mamba`` and K5 on the first occurrence's real q, k, v;
-21. ``parallel``: (a) ``param_shardings`` of all ten configurations from
+22. ``parallel``: (a) ``param_shardings`` of all ten configurations from
     ``lm.param_shapes`` on both production meshes (16 x 16 and 2 x 16 x
     16, abstract), fsdp off and on: every sharded dim divides; parameter
     GB, GB a device and ZeRO-1 AdamW state GB a device
@@ -194,11 +204,11 @@ the hybrid family (zamba2-7b, K5 at head dim 112 in its shared attention):
     layers as 4 stages of 2 decoder blocks (:data:`PIPE_YI`), forward and
     backward through the pipeline against the unpipelined stack
     (:data:`PIPE_YI_BOUND`), K5 once a layer a microbatch;
-22. ``examples``: the four ``examples/*_torch.py`` twins on the card in
+23. ``examples``: the four ``examples/*_torch.py`` twins on the card in
     this process (K1 and K2 launches counted), quickstart's, ycsb_demo's
     and serve_lm's output equal to their CPU runs', train_lm's loss falling
     with one restart;
-23. ``dryrun``: the dry run (``launch/dryrun.py``, fake tensors on "cuda"
+24. ``dryrun``: the dry run (``launch/dryrun.py``, fake tensors on "cuda"
     over fake process groups of 256 and 512 ranks) of yi-9b's three
     shapes and deepseek-v3's train_4k on both meshes and the pipeline dry
     run, each a process of its own (:data:`DRYRUN_CELLS`), every record
@@ -788,6 +798,113 @@ def run_ycsb_e(tree, kb, kl, *, seed, device, rounds=16, n_ins=3449,
            "tree_bytes": tree_bytes(tree)}
     emit(out)
     return clean, tree, first, last, (ins_kb, ins_kl, ins_val), out
+
+
+TPCC_BATCH = 1 << 20    # lookups a call of the benchmark's workload-c
+
+
+def run_tpcc(n: int, *, seed: int, device, runs: int = 25,
+             batch: int = TPCC_BATCH) -> dict:
+    """TPC-C's customer-name index at the benchmark's shapes: the keys of
+    ``bench/keysets/tpcc_customer.py``, built with ``bulk_build(device=True)``
+    and the tree settings of ``bench/configs/tpcc-name-10M.json`` as the
+    harness builds them, every key looked up once through
+    ``lookup_batch(engine="fused", collect_stats=False)`` in batches of
+    ``batch``. One lane in ten has its last byte XORed with 0xA5, which
+    no key holds there (C_FIRST is alphanumeric), so it must come back
+    absent; every other lane found with its record id. On the card K1 runs
+    the build the library picks for 40-byte keys (``cuda.stripes``: S = 2),
+    one launch a batch, counted by ``LAUNCHES`` and by build in ``obs``;
+    the first full batch and the ragged last are held against the plain
+    version exactly, and K1 is timed on the first."""
+    from bench.keysets import tpcc_customer as tpcc
+    from repro_torch import obs
+    from repro_torch.core import batch_ops, fbtree
+    from repro_torch.core.keys import KeySet
+    from repro_torch.core.traverse import TraversalEngine
+    from repro_torch.kernels.fused_descent import cuda as kcuda
+    from repro_torch.kernels.fused_descent import ops
+
+    with open(os.path.join(ROOT, "bench", "configs",
+                           "tpcc-name-10M.json")) as f:
+        conf = json.load(f)
+    t0 = time.perf_counter()
+    kb, kl = tpcc.generate(n, seed, device)
+    L = kb.shape[1]
+    cfg = fbtree.TreeConfig.plan(
+        max_keys=int(n * conf["capacity_factor"]), key_width=L,
+        ns=conf["ns"], fs=conf["fs"], leaf_fill=conf["leaf_fill"],
+        inner_fill=conf["inner_fill"])
+    tree = fbtree.bulk_build(cfg, KeySet(kb.cpu().numpy(), kl.cpu().numpy()),
+                             np.arange(n, dtype=np.int32), device=True,
+                             target=torch.device(device).type)
+    _sync(device)
+    build_s = time.perf_counter() - t0
+    on_card = tree.device.type == "cuda"
+
+    g = torch.Generator().manual_seed(seed + 29)
+    perm = torch.randperm(n, generator=g).to(device)
+    flip_all = (torch.rand(n, generator=g) < 0.1).to(device)
+    eng = TraversalEngine("fused", collect_stats=False)
+    n_batches = -(-n // batch)
+    present = present_found = flipped = flipped_absent = 0
+    batches = []
+    ops.LAUNCHES = 0
+    obs.disable(), obs.reset()
+    obs.enable()
+    try:
+        for bi in range(n_batches):
+            idx = perm[bi * batch:(bi + 1) * batch]
+            flip = flip_all[bi * batch:(bi + 1) * batch]
+            qb, ql = kb[idx].clone(), kl[idx]
+            lanes = torch.arange(qb.shape[0], device=qb.device)
+            last = ql.long() - 1
+            qb[lanes, last] ^= torch.where(flip, 0xA5, 0).to(torch.uint8)
+            vals, rep = batch_ops.lookup_batch(tree, qb, ql, engine=eng)
+            ok = rep.found[~flip] & (vals[~flip] == idx[~flip].to(torch.int32))
+            present += int((~flip).sum())
+            present_found += int(ok.sum())
+            flipped += int(flip.sum())
+            flipped_absent += int((flip & ~rep.found).sum())
+            if bi in (0, n_batches - 1):
+                batches.append((qb, ql))
+        launches = ops.LAUNCHES
+        by_build = {dict(m.labels)["stripes"]: int(m.value)
+                    for m in obs.all_metrics() if m.name == "kernel.launches"}
+    finally:
+        obs.disable(), obs.reset()
+    if present_found != present or flipped_absent != flipped:
+        raise AssertionError(
+            f"tpcc: {present - present_found} of {present} present keys not "
+            f"found with their value, {flipped - flipped_absent} of "
+            f"{flipped} changed keys found")
+    stripes = kcuda.stripes(L) if on_card else None
+    if on_card and (launches != n_batches
+                    or by_build != {str(stripes): n_batches}):
+        raise AssertionError(f"tpcc: {launches} K1 launches ({by_build} by "
+                             f"build) for {n_batches} lookup_batch calls")
+    err = max(kernel_vs_plain(tree, qb, ql) for qb, ql in batches)
+    out = {"phase": "tpcc", "keys": n, "width": L,
+           "key_lens": [int(kl.min()), int(kl.max())], "ns": cfg.ns,
+           "fs": cfg.fs, "n_levels": cfg.n_levels,
+           "tree_bytes": tree_bytes(tree), "device_build_s": build_s,
+           "batch": batch, "batches": n_batches, "launches": launches,
+           "launches_by_build": by_build, "stripes": stripes,
+           "present": present, "present_found": present_found,
+           "flipped": flipped, "flipped_absent": flipped_absent,
+           "kernel_vs_plain_lanes": [qb.shape[0] for qb, _ in batches],
+           "kernel_vs_plain_max_abs_err": err}
+    if on_card:
+        qb, ql = batches[0]
+        kern = lambda: ops.fused_traverse_probe(tree, qb, ql,
+                                                collect_stats=False)
+        for _ in range(3):
+            kern()
+        k_ms, k_all = _event_ms(kern, runs)
+        out.update(k1_ms=k_ms, k1_min_ms=min(k_all), k1_max_ms=max(k_all),
+                   k1_runs=runs, k1_design=k1_design(cfg.ns, L))
+    emit(out)
+    return out
 
 
 def run_append(tree, kb, *, seed, device, n_app=20_480, batch=4096,
@@ -1856,7 +1973,8 @@ def timing(tree, qb, ql, runs: int):
     emit({"metric": "bound_ms", "value": b_ms, "bound_by": b_by,
           "bound_bytes": b_bytes})
     emit({"metric": "bound_share", "value": b_ms / k_ms})
-    for L in (tree.config.key_width, URL_WIDTH):
+    from bench.keysets import tpcc_customer
+    for L in (tree.config.key_width, tpcc_customer.WIDTH, URL_WIDTH):
         emit({"metric": "k1_design", **k1_design(tree.config.ns, L)})
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
 
@@ -1911,8 +2029,8 @@ def k1_design(ns: int, L: int) -> dict:
     a block, blocks a SM (``cudaFuncGetAttributes``,
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). The kernels have a
     build for each number of 32-byte stripes a key takes (``stripes_for``
-    in ``csrc/cmp.cuh``): the timed ycsb width takes one, ``URL_WIDTH``
-    three."""
+    in ``csrc/cmp.cuh``): the timed ycsb width takes one, tpcc's 40 bytes
+    two, ``URL_WIDTH`` three."""
     from repro_torch.kernels.fused_descent import cuda
     return dict(ns=ns, key_width=L, stats=False, sibling=True, probe=True,
                 **cuda.kernel_attributes(ns, L, stats=False, sibling=True,
@@ -5212,6 +5330,8 @@ def main(argv=None) -> int:
     p.add_argument("--ycsb-keys", type=int, default=10_000_000)
     p.add_argument("--url-keys", type=int, default=1_000_000)
     p.add_argument("--int-keys", type=int, default=1_000_000)
+    p.add_argument("--tpcc-keys", type=int, default=10_020_000,
+                   help="customers of the tpcc phase: a multiple of 3,000")
     p.add_argument("--batch", type=int, default=65_536)
     p.add_argument("--runs", type=int, default=25)
     p.add_argument("--e-rounds", type=int, default=16)
@@ -5301,6 +5421,10 @@ def main(argv=None) -> int:
     a_out = run_append(int_tree, ikb, seed=args.seed, device=dev)
     del int_tree
     dd_mark("url, int")
+    torch.cuda.empty_cache()
+    tp_out = run_tpcc(args.tpcc_keys, seed=args.seed, device=dev,
+                      runs=args.runs)
+    torch.cuda.empty_cache()
 
     t = timing(tree, qb, ql, args.runs)
     st = scan_timing(clean, dirty, sqb, sql, 50, args.runs)
@@ -5351,13 +5475,17 @@ def main(argv=None) -> int:
         "name": "fused_descent", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_descent.cu",
         "replaces": "src/repro/kernels/fused_descent/kernel.py:299",
-        "launches": main_out["launches"] + sh_out["k1_launches"]
-        + shc_out["k1_launches"] + x_out["launches"]["fused_descent"],
+        "launches": main_out["launches"] + tp_out["launches"]
+        + sh_out["k1_launches"] + shc_out["k1_launches"]
+        + x_out["launches"]["fused_descent"],
         "launches_by_path": {"ycsb": main_out["launches"],
+                             "tpcc": tp_out["launches"],
                              "shard": sh_out["k1_launches"],
                              "shard-cache": shc_out["k1_launches"],
                              "examples": x_out["launches"]["fused_descent"]},
-        "max_abs_err": main_out["kernel_vs_plain_max_abs_err"],
+        "max_abs_err": max(main_out["kernel_vs_plain_max_abs_err"],
+                           tp_out["kernel_vs_plain_max_abs_err"]),
+        "tpcc_ms": tp_out["k1_ms"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None}, {
         "name": "fused_scan", "route": "cuda",

@@ -315,6 +315,9 @@ extern "C" int fbt_fused_descent(
   return cudaGetLastError();
 }
 
+// The key stripes S of the build a launch at key width L runs (cmp.cuh).
+extern "C" int fbt_fused_descent_stripes(int L) { return fbt::stripes_for(L); }
+
 // What the instantiation a launch at (ns, L, stats, sibling, probe) takes
 // asks of the card: out = {registers, local bytes, static shared bytes,
 // dynamic shared bytes, blocks per SM} (attrs.cuh), plus out[5] = threads a

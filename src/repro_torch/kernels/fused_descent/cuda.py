@@ -4,16 +4,17 @@ Nothing here runs at import time."""
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from ..nvcc import CSRC, attributes, check, load
 
-__all__ = ["launch", "kernel_attributes", "SOURCE"]
+__all__ = ["launch", "kernel_attributes", "stripes", "SOURCE"]
 
 SOURCE = CSRC / "fused_descent.cu"
 _FN: Optional[ctypes._CFuncPtr] = None
+_STRIPES: Dict[int, int] = {}
 
 
 def _fn():
@@ -25,6 +26,15 @@ def _fn():
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+def stripes(L: int) -> int:
+    """The key stripes S of the build a launch at key width ``L`` runs, as
+    the compiled library picks it (``cmp.cuh::stripes_for``)."""
+    s = _STRIPES.get(L)
+    if s is None:
+        s = _STRIPES[L] = int(load(SOURCE).fbt_fused_descent_stripes(L))
+    return s
 
 
 def launch(arrays, qb: torch.Tensor, ql: torch.Tensor, *, sibling_check: bool,

@@ -6,7 +6,10 @@
 ``core.batch_ops._traverse_probe`` collapses to. For queries on the card
 they launch the CUDA kernel (``cuda.py``) once, or raise; for queries on the
 CPU they run the plain torch version (``ref.py``). ``LAUNCHES`` counts the
-kernel launches made in this process.
+kernel launches made in this process; with ``obs.enable()`` the counter
+``kernel.launches`` (labels ``kernel=fused_descent``, ``stripes=S``) counts
+them by the build launched, S as the compiled library picks it for the
+key width.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from ... import obs
 from ...core.branch import BranchStats
 from ...core.fbtree import FBTree
 from ...core.leaf import LeafStats
@@ -34,6 +38,9 @@ def _run(tree: FBTree, qb, ql, sibling_check: bool, with_probe: bool,
         a, qb, ql, sibling_check=sibling_check, with_probe=with_probe,
         collect_stats=collect_stats)
     LAUNCHES += 1
+    if obs.enabled():
+        obs.counter("kernel.launches", kernel="fused_descent",
+                    stripes=cuda.stripes(qb.shape[1])).inc()
     path = list(path_arr.unbind(1))
     bstats = lstats = None
     if collect_stats:

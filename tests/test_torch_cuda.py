@@ -91,6 +91,53 @@ def test_cuda_lookup_batch_is_one_launch(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_two_stripe_build_on_tpcc_name_keys(cuda_device):
+    """K1's S = 2 build through ``lookup_batch`` on 99,000 keys of TPC-C's
+    customer-name index (``bench/keysets/tpcc_customer.py``: 32-40 bytes
+    behind 8-24 shared ones, long equal feature runs), built as the
+    benchmark builds it, equals the plain version bit for bit on found and
+    absent keys; the launch is counted under its build."""
+    from bench.keysets import tpcc_customer as tpcc
+    from repro_torch import obs
+    kb, kl = tpcc.generate(99000, 0, "cuda")
+    n = kb.shape[0]
+    cfg = TreeConfig.plan(max_keys=int(2.5 * n), key_width=kb.shape[1])
+    tree = bulk_build(cfg, KeySet(kb.cpu().numpy(), kl.cpu().numpy()),
+                      np.arange(n, dtype=np.int32), device=True,
+                      target="cuda")
+    g = torch.Generator().manual_seed(29)
+    idx = torch.randint(0, n, (6144,), generator=g).cuda()
+    qb, ql = kb[idx].clone(), kl[idx].clone()
+    lanes = torch.arange(qb.shape[0], device="cuda")
+    changed, shorter = lanes[0::3], lanes[1::3]
+    qb[changed, ql[changed].long() - 1] = ord("~")   # no C_FIRST holds it
+    ql[shorter] -= 1                                 # C_FIRST one shorter
+    qb[shorter, ql[shorter].long()] = 0
+    assert kcuda.stripes(qb.shape[1]) == 2
+    n0 = ops.LAUNCHES
+    obs.disable(), obs.reset()
+    obs.enable()
+    try:
+        vals, rep = B.lookup_batch(
+            tree, qb, ql, engine=TraversalEngine("fused", collect_stats=False))
+        launches = obs.get_metric("kernel.launches", kernel="fused_descent",
+                                  stripes=2).value
+    finally:
+        obs.disable(), obs.reset()
+    assert ops.LAUNCHES == n0 + 1 and launches == 1
+    ref_vals, ref_rep = B.lookup_batch(
+        tree, qb, ql, engine=TraversalEngine("torch", collect_stats=False))
+    assert torch.equal(vals, ref_vals)
+    for f in rep._fields:
+        assert torch.equal(getattr(rep, f), getattr(ref_rep, f)), f
+    assert rep.found[2::3].all() and not rep.found[0::3].any()
+    assert not rep.found[1::3].any()
+    assert torch.equal(vals[2::3], idx[2::3].to(torch.int32))
+    assert kernel_vs_plain(tree, qb, ql) == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     tree, qb, ql = _tree_and_queries("int", 64, n=500)
     a = tree.arrays

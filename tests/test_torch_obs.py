@@ -109,6 +109,63 @@ def test_counters_add_on_the_device_with_no_copy_a_batch(monkeypatch):
     assert obs.get_metric("op.lanes", op="update").value == 132
 
 
+def test_k1_launches_count_by_build_on_the_host(monkeypatch):
+    """``kernel.launches`` counts K1's launches by the build launched
+    (``stripes``, as the library picks it for the key width): S = 1 and
+    S = 2 apart, nothing while telemetry is off (the library is not even
+    asked then), and no sync or read of the card's results. The launch and
+    the library's answer are stood in for: a CUDA kernel has no CPU mode."""
+    from repro_torch.kernels.fused_descent import cuda as kcuda
+    from repro_torch.kernels.fused_descent import ops
+
+    def launch(a, qb, ql, **kw):
+        z = lambda *s: torch.zeros(s, dtype=torch.int32)
+        B, NL = qb.shape[0], a.stacked.knum.shape[0]
+        return (z(B), z(B, NL), torch.zeros(B, dtype=torch.bool), z(B), z(B),
+                z(6, B))
+
+    def inputs(width):
+        q = K.make_keyset([int(x).to_bytes(width, "big") for x in range(50)],
+                          width)
+        cfg = TreeConfig.plan(max_keys=1024, key_width=width)
+        return (bulk_build(cfg, q, np.arange(50, dtype=np.int32),
+                           target="cpu"),
+                torch.from_numpy(q.bytes), torch.from_numpy(q.lens))
+    trees = {w: inputs(w) for w in (W, 40)}
+
+    def run(width, times):
+        for _ in range(times):
+            ops._run(*trees[width], True, True, False)
+
+    asked = []
+
+    def stripes(L):
+        asked.append(L)
+        return {W: 1, 40: 2}[L]
+
+    monkeypatch.setattr(kcuda, "launch", launch)
+    monkeypatch.setattr(kcuda, "stripes", stripes)
+    for name in ("synchronize", "current_stream"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: pytest.fail(
+            "device sync"))
+    for name in ("item", "tolist", "cpu"):
+        monkeypatch.setattr(torch.Tensor, name, lambda *a, **k: pytest.fail(
+            "device read"))
+    n0 = ops.LAUNCHES
+    run(W, 1)
+    assert obs.all_metrics() == [] and asked == []
+    obs.enable()
+    run(W, 2)
+    run(40, 1)
+    assert ops.LAUNCHES == n0 + 4 and asked == [W, W, 40]
+
+    def launches(s):
+        return obs.get_metric("kernel.launches", kernel="fused_descent",
+                              stripes=s)
+    assert launches(1).value == 2 and launches(2).value == 1
+    assert launches(3) is None
+
+
 def _names(rec):
     return [rec.name(i) for i in range(len(rec))]
 
