@@ -803,6 +803,11 @@ def run_ycsb_e(tree, kb, kl, *, seed, device, rounds=16, n_ins=3449,
 TPCC_BATCH = 1 << 20    # lookups a call of the benchmark's workload-c
 
 
+def build_label(labels: dict) -> str:
+    """A K1 build as ``kernel.launches`` labels it: ``S<stripes>-G<lanes>``."""
+    return f"S{labels['stripes']}-G{labels['lanes']}"
+
+
 def run_tpcc(n: int, *, seed: int, device, runs: int = 25,
              batch: int = TPCC_BATCH) -> dict:
     """TPC-C's customer-name index at the benchmark's shapes: the keys of
@@ -813,8 +818,9 @@ def run_tpcc(n: int, *, seed: int, device, runs: int = 25,
     ``batch``. One lane in ten has its last byte XORed with 0xA5, which
     no key holds there (C_FIRST is alphanumeric), so it must come back
     absent; every other lane found with its record id. On the card K1 runs
-    the build the library picks for 40-byte keys (``cuda.stripes``: S = 2),
-    one launch a batch, counted by ``LAUNCHES`` and by build in ``obs``;
+    the build the library picks for 40-byte keys (``cuda.stripes``: S = 2;
+    ``cuda.lanes``: G lanes a query), one launch a batch, counted by
+    ``LAUNCHES`` and by build (S and G) in ``obs``;
     the first full batch and the ragged last are held against the plain
     version exactly, and K1 is timed on the first."""
     from bench.keysets import tpcc_customer as tpcc
@@ -869,7 +875,7 @@ def run_tpcc(n: int, *, seed: int, device, runs: int = 25,
             if bi in (0, n_batches - 1):
                 batches.append((qb, ql))
         launches = ops.LAUNCHES
-        by_build = {dict(m.labels)["stripes"]: int(m.value)
+        by_build = {build_label(dict(m.labels)): int(m.value)
                     for m in obs.all_metrics() if m.name == "kernel.launches"}
     finally:
         obs.disable(), obs.reset()
@@ -879,8 +885,10 @@ def run_tpcc(n: int, *, seed: int, device, runs: int = 25,
             f"found with their value, {flipped - flipped_absent} of "
             f"{flipped} changed keys found")
     stripes = kcuda.stripes(L) if on_card else None
+    lanes = kcuda.lanes(cfg.ns, L) if on_card else None
+    build = build_label({"stripes": stripes, "lanes": lanes})
     if on_card and (launches != n_batches
-                    or by_build != {str(stripes): n_batches}):
+                    or by_build != {build: n_batches}):
         raise AssertionError(f"tpcc: {launches} K1 launches ({by_build} by "
                              f"build) for {n_batches} lookup_batch calls")
     err = max(kernel_vs_plain(tree, qb, ql) for qb, ql in batches)
@@ -890,6 +898,7 @@ def run_tpcc(n: int, *, seed: int, device, runs: int = 25,
            "tree_bytes": tree_bytes(tree), "device_build_s": build_s,
            "batch": batch, "batches": n_batches, "launches": launches,
            "launches_by_build": by_build, "stripes": stripes,
+           "lanes_per_query": lanes,
            "present": present, "present_found": present_found,
            "flipped": flipped, "flipped_absent": flipped_absent,
            "kernel_vs_plain_lanes": [qb.shape[0] for qb, _ in batches],
@@ -2030,9 +2039,14 @@ def k1_design(ns: int, L: int) -> dict:
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). The kernels have a
     build for each number of 32-byte stripes a key takes (``stripes_for``
     in ``csrc/cmp.cuh``): the timed ycsb width takes one, tpcc's 40 bytes
-    two, ``URL_WIDTH`` three."""
+    two, ``URL_WIDTH`` three; each with the lanes a query of its lane
+    groups (``lanes_for`` in ``csrc/fused_descent.cu``) and the queries a
+    warp."""
     from repro_torch.kernels.fused_descent import cuda
+    lanes = cuda.lanes(ns, L)
     return dict(ns=ns, key_width=L, stats=False, sibling=True, probe=True,
+                stripes=cuda.stripes(L), lanes_per_query=lanes,
+                queries_per_warp=32 // lanes,
                 **cuda.kernel_attributes(ns, L, stats=False, sibling=True,
                                          probe=True))
 

@@ -1,4 +1,4 @@
-// Padded-key compares for one warp working on one query.
+// Padded-key compares for one warp, or one lane group, working on one query.
 //
 // The parity-critical compare helpers of the descent, shared by every CUDA
 // kernel that walks the tree (the reference shares `_cmp3` and `_prefix_cmp`
@@ -15,6 +15,9 @@
 // the YCSB and integer keys, 3 for 72-byte URLs) and S = 8 (up to 256
 // bytes), so a key costs the registers and loads of its width, not of the
 // widest key (PERF.md §6 times the URL build at S = 3 against S = 4 and 8).
+//
+// The same compares for a query served by a lane group of G < 32 lanes
+// (GroupKey, below) hold a row as words spread over the group's lanes.
 #pragma once
 
 #include <cstdint>
@@ -115,6 +118,130 @@ template <int S>
 __device__ __forceinline__ int key_byte(const WarpKey<S>& q, int p, int L) {
   const int v = __shfl_sync(kFullMask, pick(q.b, p >> 5), p & 31);
   return p < L ? v : 0;
+}
+
+// ---- lane groups: G lanes a query (K1, fused_descent.cu).
+//
+// A group holds a row as words: the row padded to 32 S bytes is 8 S
+// little-endian words (byte 0, the lowest address, in the low bits of
+// word 0), kWords = ceil(8 S / G) of them a lane, so lane j of the group
+// holds bytes [4 kWords j, 4 kWords (j + 1)) and lanes past the row hold
+// zeros. A compare finds each lane's first differing byte in its own words
+// and a ballot over the group's lanes the first lane that has one; the
+// result is the same on every lane of the group. `j` is the lane in the
+// group and `gmask` the group's lanes (slots.cuh::group_lanes), the only
+// lanes a group's ballots and shuffles name.
+template <int S, int G>
+struct GroupKey {
+  static_assert(G >= 1 && G < 32 && (32 % G) == 0, "G must divide 32");
+  static constexpr int kWords = (8 * S + G - 1) / G;
+  uint32_t w[kWords];
+};
+
+// The widest load every row of a table of rows of width L at `base` allows:
+// 16, 8 or 4 bytes when both L and the base are multiples of it, else 1
+// (byte loads).
+__host__ __device__ inline int row_vec(int L, const void* base) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(base);
+  for (int v = 16; v >= 4; v >>= 1)
+    if (L % v == 0 && p % v == 0) return v;
+  return 1;
+}
+
+// Lane j's words of a row of width L, in loads of `vec` bytes (row_vec of
+// the row's table, or less): each load lies wholly inside the row or wholly
+// past it (zeros), as L is a multiple of vec.
+template <int S, int G>
+__device__ __forceinline__ GroupKey<S, G> load_group_key(
+    const uint8_t* __restrict__ row, int L, int j, int vec) {
+  constexpr int KW = GroupKey<S, G>::kWords, KB = 4 * KW;
+  GroupKey<S, G> k;
+  const int at = KB * j;  // the lane's first byte
+  if (KB % 16 == 0 && vec >= 16) {
+#pragma unroll
+    for (int c = 0; c < KB / 16; ++c) {
+      const int off = at + 16 * c;
+      const uint4 x = off < L ? __ldg(reinterpret_cast<const uint4*>(row + off))
+                              : make_uint4(0, 0, 0, 0);
+      k.w[4 * c] = x.x, k.w[4 * c + 1] = x.y, k.w[4 * c + 2] = x.z,
+      k.w[4 * c + 3] = x.w;
+    }
+  } else if (KB % 8 == 0 && vec >= 8) {
+#pragma unroll
+    for (int c = 0; c < KB / 8; ++c) {
+      const int off = at + 8 * c;
+      const uint2 x = off < L ? __ldg(reinterpret_cast<const uint2*>(row + off))
+                              : make_uint2(0, 0);
+      k.w[2 * c] = x.x, k.w[2 * c + 1] = x.y;
+    }
+  } else if (vec >= 4) {
+#pragma unroll
+    for (int c = 0; c < KW; ++c) {
+      const int off = at + 4 * c;
+      k.w[c] = off < L ? __ldg(reinterpret_cast<const uint32_t*>(row + off)) : 0u;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < KW; ++c) {
+      uint32_t x = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int pos = at + 4 * c + i;
+        x |= uint32_t(pos < L ? row[pos] : 0) << (8 * i);
+      }
+      k.w[c] = x;
+    }
+  }
+  return k;
+}
+
+// (row - query) at the first byte below `nbytes` where they differ, 0 when
+// the first `nbytes` bytes agree. Group-uniform result.
+template <int S, int G>
+__device__ __forceinline__ int first_diff(const GroupKey<S, G>& row,
+                                          const GroupKey<S, G>& q, int nbytes,
+                                          int j, unsigned gmask) {
+  constexpr int KW = GroupKey<S, G>::kWords;
+  int d = 0;
+#pragma unroll
+  for (int k = KW - 1; k >= 0; --k) {  // the lowest word that differs wins
+    const int n = nbytes - 4 * (KW * j + k);  // its bytes below nbytes
+    const uint32_t x = (row.w[k] ^ q.w[k]) &
+                       (n >= 4 ? ~0u : (1u << (8 * max(n, 0))) - 1u);
+    if (x != 0u) {
+      const int sh = (__ffs(static_cast<int>(x)) - 1) & ~7;
+      d = int((row.w[k] >> sh) & 0xffu) - int((q.w[k] >> sh) & 0xffu);
+    }
+  }
+  const unsigned hit = __ballot_sync(gmask, d != 0) & gmask;
+  return hit ? __shfl_sync(gmask, d, __ffs(static_cast<int>(hit)) - 1) : 0;
+}
+
+template <int S, int G>
+__device__ __forceinline__ int cmp3_keys(const GroupKey<S, G>& row,
+                                         int row_len, const GroupKey<S, G>& q,
+                                         int q_len, int L, int j,
+                                         unsigned gmask) {
+  const int d = first_diff(row, q, L, j, gmask);
+  return d != 0 ? sign(d) : sign(row_len - q_len);
+}
+
+template <int S, int G>
+__device__ __forceinline__ int prefix_cmp(const GroupKey<S, G>& prefix,
+                                          int plen, const GroupKey<S, G>& q,
+                                          int j, unsigned gmask) {
+  return -sign(first_diff(prefix, q, plen, j, gmask));
+}
+
+// Byte `p` of the key (0 at p >= L): its word shuffled from the lane that
+// holds it. `p` is group-uniform.
+template <int S, int G>
+__device__ __forceinline__ int key_byte(const GroupKey<S, G>& q, int p, int L,
+                                        unsigned gmask) {
+  constexpr int KW = GroupKey<S, G>::kWords;
+  const int word = p >> 2;
+  const uint32_t v = __shfl_sync(gmask, pick(q.w, word % KW), word / KW, G);
+  return p < L ? int((v >> (8 * (p & 3))) & 0xffu) : 0;
 }
 
 }  // namespace fbt

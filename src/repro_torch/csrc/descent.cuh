@@ -1,9 +1,10 @@
-// Root-to-leaf descent and blink sibling hop for one warp and one query,
-// shared by every kernel that walks the tree: the fused descent (K1,
-// fused_descent.cu) and the fused range scan (K2, fused_scan.cu). The
-// reference shares `descend_levels` and `sibling_hop` of
-// repro/kernels/fused_descent/kernel.py between its two kernels the same
-// way, so both resolve bit-identical start leaves.
+// Root-to-leaf descent and blink sibling hop for one query, shared by every
+// kernel that walks the tree: for one warp a query (the fused range scan,
+// K2, fused_scan.cu) and for a lane group of G lanes a query (the fused
+// descent, K1, fused_descent.cu; below), the two with the same loop,
+// compare order and counters. The reference shares `descend_levels` and
+// `sibling_hop` of repro/kernels/fused_descent/kernel.py between its two
+// kernels the same way, so both resolve bit-identical start leaves.
 //
 // A descent is a chain of dependent loads: a level's row is known only when
 // the level above has picked its child. So each level issues its loads
@@ -217,6 +218,165 @@ __device__ __forceinline__ int sibling_hop(const TreeView& t, int nid, Row& r,
     ++hops;
     r = load(nid);
     hrow = high_row<S>(t, r, lane);
+  }
+  return nid;
+}
+
+// ---- lane groups: the same descent and hop for a query served by G < 32
+// lanes (K1, fused_descent.cu; K2 runs the warp's above). A key row is a
+// GroupKey (cmp.cuh), a feature row W = NS / G bytes a lane
+// (load_group_feature_row), and every loop and branch is group-uniform, so
+// the ballots and shuffles name the group's lanes alone (`gmask`) and a
+// group that resolves early or has left never holds up the others of its
+// warp. A scalar the group needs (knum, plen, a child or anchor id, a key
+// length) is loaded by every lane of the group from one address: one
+// sector a group, as one lane's load would be, with no shuffle on the
+// chain of dependent loads. `vec` is the widest load the key-row tables
+// allow (row_vec).
+
+// A lane's place in its group of G lanes.
+template <int G>
+struct Lanes {
+  int j;          // lane in the group
+  unsigned mask;  // the group's lanes (group_lanes<G>)
+};
+
+template <int NS, int S, int G>
+struct GroupNodeRow {
+  int knum, plen;
+  GroupKey<S, G> prefix;
+  uint32_t feat0[NS / G / 4];  // feature row 0
+};
+
+template <int NS, int S, int G>
+__device__ __forceinline__ GroupNodeRow<NS, S, G> load_group_node(
+    const TreeView& t, int64_t row, const Lanes<G>& g, int vec) {
+  GroupNodeRow<NS, S, G> n;
+  n.knum = t.knum[row];
+  n.plen = t.plen[row];
+  n.prefix = load_group_key<S, G>(t.prefix + row * t.L, t.L, g.j, vec);
+  load_group_feature_row<NS, G>(t.features + row * t.fs * NS, g.j, n.feat0);
+  return n;
+}
+
+template <int S, int G>
+struct GroupWalker {
+  GroupKey<S, G> q;
+  int qlen;
+  int32_t* path;
+  DescentCounters c;
+  int nid;
+};
+
+template <int S, int G>
+struct GroupKeyRow {
+  GroupKey<S, G> b;
+  int len;
+};
+
+template <int S, int G>
+__device__ __forceinline__ GroupKeyRow<S, G> load_group_keyrow(
+    const TreeView& t, int kd, const Lanes<G>& g, int vec) {
+  return {load_group_key<S, G>(t.key_bytes + int64_t(kd) * t.L, t.L, g.j,
+                               vec),
+          t.key_lens[kd]};
+}
+
+// resolve_level for a lane group.
+template <int NS, int S, int G, bool STATS>
+__device__ __forceinline__ int resolve_group_level(
+    const TreeView& t, const GroupNodeRow<NS, S, G>& n, int64_t row,
+    const GroupKey<S, G>& q, int qlen, const Lanes<G>& g, int vec,
+    DescentCounters& c) {
+  if (n.knum <= 1) return 0;
+  const int L = t.L;
+  constexpr int kLinesPerRow = NS / 64 > 1 ? NS / 64 : 1;
+  const int kn = n.knum, kmax = kn - 1, pl = n.plen;
+  const int pcmp = prefix_cmp(n.prefix, pl, q, g.j, g.mask);
+  int idx;
+  bool need_bs = false;
+  RoundsOut r{0, true, 0, -1, 0};
+  if (!STATS && pcmp != 0) {
+    idx = pcmp < 0 ? 0 : kmax;  // the prefix decides; rounds not billed
+  } else {
+    const uint8_t* __restrict__ f = t.features + row * t.fs * NS;
+    r = rounds_over<NS, STATS, G, 1>(
+        [&](int fid, uint32_t (&fr)[NS / G / 4]) {
+          if (fid == 0) {
+#pragma unroll
+            for (int k = 0; k < NS / G / 4; ++k) fr[k] = n.feat0[k];
+          } else {
+            load_group_feature_row<NS, G>(f + fid * NS, g.j, fr);
+          }
+        },
+        [&](int fid) { return key_byte(q, pl + fid, L, g.mask); }, t.fs, kn,
+        pcmp, g.mask);
+    idx = r.idx;
+    need_bs = !r.resolved;
+  }
+  int kcl = 0;
+  if (need_bs) {  // suffix binary search over the surviving run
+    const int32_t* __restrict__ anch = t.anchors + row * NS;
+    int lo = r.run_lo, hi = r.run_hi + 1;
+    while (lo < hi) {
+      const int mid = min(max((lo + hi) >> 1, 0), NS - 1);
+      const GroupKeyRow<S, G> k =
+          load_group_keyrow<S, G>(t, max(anch[mid], 0), g, vec);
+      const int c3 = cmp3_keys(k.b, k.len, q, qlen, L, g.j, g.mask);
+      if (c3 <= 0) lo = mid + 1; else hi = mid;
+      ++kcl;
+    }
+    idx = min(max(lo - 1, 0), kmax);
+  }
+  if (STATS) {
+    c.feat_rounds += r.rounds;
+    c.suffix_bs += need_bs;
+    c.key_compares += kcl;
+    c.lines_touched += 1 + r.rounds * kLinesPerRow +
+                       kcl * (1 + (qlen + 63) / 64) + 1;
+  }
+  return idx;
+}
+
+// descend_levels for a lane group; lane 0 of the group writes the path.
+template <int NS, int S, int G, bool STATS>
+__device__ __forceinline__ void descend_group_levels(const TreeView& t,
+                                                     GroupWalker<S, G>& w,
+                                                     const Lanes<G>& g,
+                                                     int vec) {
+  w.nid = 0;  // root = node 0 of level 0
+  for (int l = 0; l < t.n_levels; ++l) {
+    if (g.j == 0) w.path[l] = w.nid;
+    const int64_t row = int64_t(l) * t.C + row_of(w.nid, t.C);
+    const GroupNodeRow<NS, S, G> n = load_group_node<NS, S, G>(t, row, g, vec);
+    const int idx = resolve_group_level<NS, S, G, STATS>(t, n, row, w.q,
+                                                         w.qlen, g, vec, w.c);
+    w.nid = t.children[row * NS + idx];
+  }
+}
+
+// high_row for a lane group.
+template <int S, int G, class Row>
+__device__ __forceinline__ GroupKeyRow<S, G> group_high_row(
+    const TreeView& t, const Row& r, const Lanes<G>& g, int vec) {
+  GroupKeyRow<S, G> h{};
+  if (r.high >= 0 && r.next >= 0) h = load_group_keyrow<S, G>(t, r.high, g, vec);
+  return h;
+}
+
+// sibling_hop for a lane group.
+template <int S, int G, class Row, class Load>
+__device__ __forceinline__ int group_sibling_hop(
+    const TreeView& t, int nid, Row& r, GroupKeyRow<S, G> hrow, Load load,
+    const GroupKey<S, G>& q, int qlen, const Lanes<G>& g, int vec, int& hops) {
+  for (int h = 0; h < kSiblingHops; ++h) {
+    if (r.high < 0 || r.next < 0) break;
+    if (cmp3_keys(hrow.b, hrow.len, q, qlen, t.L, g.j, g.mask) > 0)
+      break;  // high key > query: the query stays
+    nid = r.next;
+    ++hops;
+    r = load(nid);
+    hrow = group_high_row<S, G>(t, r, g, vec);
   }
   return nid;
 }

@@ -31,8 +31,8 @@
 //   slower at a trivial one); rows past kRegRows load as their round
 //   comes;
 // - the rounds then run from registers through the shared loop of
-//   feature_rounds.cuh (rounds_over at G lanes a query; K1 and K2 run it
-//   at a warp a query inside their descent), with byte-SIMD compares and
+//   feature_rounds.cuh (rounds_over at G lanes a query, as K1 runs it
+//   inside its descent; K2 at a warp a query), with byte-SIMD compares and
 //   the group's masks gathered by shuffles (group_row_masks). The round
 //   order, the early exit, the overrides and the rounds count are the
 //   shared loop's.

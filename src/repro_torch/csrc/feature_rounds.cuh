@@ -7,10 +7,11 @@
 // here (rounds_over) so that every kernel that resolves a level shares
 // it; what differs between kernels is only how many lanes serve a query
 // and so how a round's equal and less-than masks are formed (slots.cuh):
-// ballots over a warp (the descents of K1 and K2, which hand it the rows
-// they loaded with the rest of the level), or byte-SIMD compares gathered
-// by shuffles inside a lane group (K3, which loads a node's block in one
-// trip).
+// ballots over a warp (K2's descent, which hands it the rows it loaded
+// with the rest of the level), or byte-SIMD compares gathered by shuffles
+// inside a lane group (K3, which loads a node's block in one trip, and
+// K1's descent, which loads a level's first row with the rest of the
+// level).
 #pragma once
 
 #include <cstdint>
@@ -34,6 +35,15 @@ __device__ __forceinline__ void load_feature_row(
     const uint8_t* __restrict__ row, int lane, uint32_t (&f)[NS / 32]) {
 #pragma unroll
   for (int k = 0; k < NS / 32; ++k) f[k] = row[32 * k + lane];
+}
+
+// The same row as lane j of a group of G lanes holds it: the W = NS / G
+// bytes of slots [W j, W j + W) as W / 4 little-endian words (the rows of
+// a node's block are NS-aligned, so the loads are W-aligned).
+template <int NS, int G>
+__device__ __forceinline__ void load_group_feature_row(
+    const uint8_t* __restrict__ row, int j, uint32_t (&f)[NS / G / 4]) {
+  load_words<NS / G>(row + (NS / G) * j, f);
 }
 
 // A round's masks for a lane group: `v` is the lane's W bytes of the row
@@ -62,13 +72,14 @@ __device__ __forceinline__ void group_row_masks(const uint32_t (&v)[W / 4],
 // order, so !resolved is exactly the set billed for the binary search. A
 // caller may hand rows already loaded (the descent loads a level's rows
 // together; K3 a node's block) or load them as the rounds reach them.
-// - G = 32, a warp a query (the descents of K1 and K2): f[k] is the byte of
-//   slot 32k + lane (load_feature_row); the masks are ballots.
-// - G < 32, a group of G lanes a query (K3; `gmask` names the group's
-//   lanes): lane j's f holds the W = NS / G bytes of slots [W j, W j + W)
+// - G = 32, a warp a query (K2's descent): f[k] is the byte of slot
+//   32k + lane (load_feature_row); the masks are ballots.
+// - G < 32, a group of G lanes a query (K3, K1's descent; `gmask` names
+//   the group's lanes): lane j's f holds the W = NS / G bytes of slots [W j, W j + W)
 //   as W / 4 little-endian words; the masks are byte-SIMD compares
 //   gathered by shuffles inside the group (group_row_masks).
-template <int NS, bool STATS, int G = 32, class RowAt, class QAt>
+template <int NS, bool STATS, int G = 32, int UNROLL = (G == 32 ? 1 : 8),
+          class RowAt, class QAt>
 __device__ __forceinline__ RoundsOut rounds_over(RowAt row_at, QAt q_at,
                                                  int fs, int knum, int pcmp,
                                                  unsigned gmask = kFullMask) {
@@ -89,10 +100,12 @@ __device__ __forceinline__ RoundsOut rounds_over(RowAt row_at, QAt q_at,
   }
   bool resolved = false;
   // A warp a query: not unrolled, as the compiler leaves this loop without
-  // the pragma (K1's and K2's code is the same either way). A lane group:
-  // unrolled, so a caller's rows in registers are picked by constants when
-  // fs is one (PERF.md §6).
-#pragma unroll (G == 32 ? 1 : 8)
+  // the pragma (K2's code is the same either way). A lane group: unrolled
+  // by default, so a caller's rows in registers are picked by constants
+  // when fs is one (K3, PERF.md §6); K1, whose rows beyond the first load
+  // as the rounds reach them, asks for UNROLL 1 (faster, and a quarter
+  // less to compile).
+#pragma unroll (UNROLL)
   for (int fid = 0; fid < fs; ++fid) {
     const int qv = q_at(fid);
     SlotMask<NS> m, less;

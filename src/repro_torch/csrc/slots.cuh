@@ -3,8 +3,8 @@
 //
 // The paper compares 64 anchor bytes with one AVX-512 instruction and reads
 // the result as a 64-bit mask (compare_equal / compare_less + TZCNT). A warp
-// (K1, K2: lane t owns slots t, t+32, ...) fills the mask with ballots. A
-// lane group (K3, K4: G = NS / W lanes a query, lane j owns the W bytes of
+// (K2: lane t owns slots t, t+32, ...) fills the mask with ballots. A lane
+// group (K1, K3, K4: G = NS / W lanes a query, lane j owns the W bytes of
 // slots [W j, W j + W) as one vector) compares four bytes an instruction in
 // a 32-bit word (byte-SIMD, below), packs its bits and gathers the group's
 // bits with G shuffles. The first set bit (__ffsll) and the popcount
@@ -96,6 +96,33 @@ template <int G>
 __device__ __forceinline__ unsigned group_lanes(int lane) {
   static_assert(G >= 1 && G <= 32 && (32 % G) == 0, "G must divide 32");
   return G == 32 ? kFullMask : ((1u << G) - 1u) << (lane & ~(G - 1));
+}
+
+// NB bytes at p as NB / 4 little-endian words, in the widest loads NB
+// allows (16-byte vectors, else 8, else 4 bytes); p is aligned to that
+// width.
+template <int NB>
+__device__ __forceinline__ void load_words(const void* __restrict__ p,
+                                           uint32_t (&v)[NB / 4]) {
+  static_assert(NB >= 4 && NB % 4 == 0, "whole 32-bit words");
+  if constexpr (NB % 16 == 0) {
+#pragma unroll
+    for (int c = 0; c < NB / 16; ++c) {
+      const uint4 x = __ldg(static_cast<const uint4*>(p) + c);
+      v[4 * c] = x.x, v[4 * c + 1] = x.y, v[4 * c + 2] = x.z,
+      v[4 * c + 3] = x.w;
+    }
+  } else if constexpr (NB % 8 == 0) {
+#pragma unroll
+    for (int c = 0; c < NB / 8; ++c) {
+      const uint2 x = __ldg(static_cast<const uint2*>(p) + c);
+      v[2 * c] = x.x, v[2 * c + 1] = x.y;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < NB / 4; ++c)
+      v[c] = __ldg(static_cast<const uint32_t*>(p) + c);
+  }
 }
 
 // A lane's packed flags: two sets of W bits, in one 32-bit word up to W =

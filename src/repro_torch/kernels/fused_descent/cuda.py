@@ -10,11 +10,14 @@ import torch
 
 from ..nvcc import CSRC, attributes, check, load
 
-__all__ = ["launch", "kernel_attributes", "stripes", "SOURCE"]
+__all__ = ["launch", "kernel_attributes", "stripes", "lanes", "SOURCE",
+           "ALIGN"]
 
 SOURCE = CSRC / "fused_descent.cu"
+ALIGN = 16        # bytes: a lane group loads its part of a row in vectors
 _FN: Optional[ctypes._CFuncPtr] = None
 _STRIPES: Dict[int, int] = {}
+_LANES: Dict[tuple, int] = {}
 
 
 def _fn():
@@ -37,6 +40,18 @@ def stripes(L: int) -> int:
     return s
 
 
+def lanes(ns: int, L: int) -> int:
+    """The lanes a query G of the build a launch at ``ns`` and key width
+    ``L`` runs, as the compiled library picks it (``lanes_for`` in
+    ``fused_descent.cu``): a lane group of G lanes, 32 / G queries a
+    warp."""
+    key = (str(SOURCE), ns, L)
+    g = _LANES.get(key)
+    if g is None:
+        g = _LANES[key] = int(load(SOURCE).fbt_fused_descent_lanes(ns, L))
+    return g
+
+
 def launch(arrays, qb: torch.Tensor, ql: torch.Tensor, *, sibling_check: bool,
            with_probe: bool, collect_stats: bool):
     """Launch the kernel on the current stream of the queries' device.
@@ -46,7 +61,10 @@ def launch(arrays, qb: torch.Tensor, ql: torch.Tensor, *, sibling_check: bool,
     stats [6, B])``, all int32 but ``found``; the rows of ``stats`` are
     feat_rounds, suffix_bs, key_compares, lines_touched, sibling_hops and
     tag_candidates, and are unwritten unless ``collect_stats``. Raises on
-    any tensor the kernel does not take and on a failed launch.
+    any tensor the kernel does not take and on a failed launch: the feature
+    block and the leaves' tag, occupancy and key-id rows must start on a
+    16-byte boundary (a lane group loads its part of a row in vectors;
+    the key rows may start anywhere).
     """
     s = arrays.stacked
     dev = qb.device
@@ -81,6 +99,12 @@ def launch(arrays, qb: torch.Tensor, ql: torch.Tensor, *, sibling_check: bool,
             ("leaf_keyid", arrays.leaf_keyid, i32, (LC, ns)),
             ("leaf_val", arrays.leaf_val, i32, (LC, ns))):
         check("fused_descent", name, t, dt, shape, dev)
+    for name, t in (("features", s.features), ("leaf_tags", arrays.leaf_tags),
+                    ("leaf_occ", arrays.leaf_occ),
+                    ("leaf_keyid", arrays.leaf_keyid)):
+        if t.numel() and t.data_ptr() % ALIGN:
+            raise ValueError(f"fused_descent: {name} must start on a "
+                             f"{ALIGN}-byte boundary, got {t.data_ptr():#x}")
 
     leaf = torch.empty((B,), dtype=i32, device=dev)
     path = torch.empty((B, NL), dtype=i32, device=dev)

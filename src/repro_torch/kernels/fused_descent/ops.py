@@ -7,9 +7,9 @@
 they launch the CUDA kernel (``cuda.py``) once, or raise; for queries on the
 CPU they run the plain torch version (``ref.py``). ``LAUNCHES`` counts the
 kernel launches made in this process; with ``obs.enable()`` the counter
-``kernel.launches`` (labels ``kernel=fused_descent``, ``stripes=S``) counts
-them by the build launched, S as the compiled library picks it for the
-key width.
+``kernel.launches`` (labels ``kernel=fused_descent``, ``stripes=S``,
+``lanes=G``) counts them by the build launched: S and the lanes a query G
+as the compiled library picks them for the node size and key width.
 """
 from __future__ import annotations
 
@@ -39,8 +39,9 @@ def _run(tree: FBTree, qb, ql, sibling_check: bool, with_probe: bool,
         collect_stats=collect_stats)
     LAUNCHES += 1
     if obs.enabled():
+        L = qb.shape[1]
         obs.counter("kernel.launches", kernel="fused_descent",
-                    stripes=cuda.stripes(qb.shape[1])).inc()
+                    stripes=cuda.stripes(L), lanes=cuda.lanes(ns, L)).inc()
     path = list(path_arr.unbind(1))
     bstats = lstats = None
     if collect_stats:

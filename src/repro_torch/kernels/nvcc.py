@@ -25,14 +25,18 @@ from typing import Dict, Iterable, List, Optional
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "BUILD_LOG", "sources",
-           "library_path", "build", "load", "check", "attributes"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SOURCE_FLAGS", "BUILD_LOG",
+           "sources", "library_path", "build", "load", "check", "attributes"]
 
 _PKG = Path(__file__).resolve().parents[1]          # src/repro_torch
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"   # <checkout>/build/kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Flags a source's build takes beside NVCC_FLAGS: K1's 80 instantiations
+# are compiled by as many jobs as the machine has cores, else its build
+# alone takes ~80 s of a run's set-up.
+SOURCE_FLAGS = {"fused_descent.cu": ("-split-compile=0",)}
 BUILD_LOG: Dict[str, str] = {}   # source name -> nvcc output of a build made here
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
@@ -55,8 +59,12 @@ def _deps(src: Path) -> List[Path]:
     return sorted(seen)
 
 
+def _flags(src: Path) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(src.name, ())
+
+
 def library_path(src: Path) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(src)).encode())
     for p in _deps(src):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -92,7 +100,7 @@ def build(srcs: Optional[Iterable[Path]] = None) -> Dict[Path, Path]:
         for s in todo:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(s)]
+            cmd = [nvcc, *_flags(s), "-I", str(CSRC), "-o", tmp, str(s)]
             procs.append((s, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))

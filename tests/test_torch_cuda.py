@@ -121,7 +121,8 @@ def test_cuda_two_stripe_build_on_tpcc_name_keys(cuda_device):
         vals, rep = B.lookup_batch(
             tree, qb, ql, engine=TraversalEngine("fused", collect_stats=False))
         launches = obs.get_metric("kernel.launches", kernel="fused_descent",
-                                  stripes=2).value
+                                  stripes=2,
+                                  lanes=kcuda.lanes(64, qb.shape[1])).value
     finally:
         obs.disable(), obs.reset()
     assert ops.LAUNCHES == n0 + 1 and launches == 1
@@ -133,6 +134,116 @@ def test_cuda_two_stripe_build_on_tpcc_name_keys(cuda_device):
     assert rep.found[2::3].all() and not rep.found[0::3].any()
     assert not rep.found[1::3].any()
     assert torch.equal(vals[2::3], idx[2::3].to(torch.int32))
+    assert kernel_vs_plain(tree, qb, ql) == 0
+    torch.cuda.synchronize()
+
+
+# K1's builds, one test tree each: (key set, ns, the stripes S the library
+# picks for its width). ``wide`` is the url keys behind a 100-byte shared
+# prefix (172 bytes, the S = 8 build), ``tpcc`` TPC-C's customer-name keys
+# (32-40 bytes behind 8-24 shared ones, long equal feature runs).
+K1_BUILDS = (("ycsb", 64, 1), ("tpcc", 64, 2), ("url", 64, 3),
+             ("int", 128, 1), ("wide", 64, 8))
+K1_IDS = [f"{k}-ns{ns}-S{s}" for k, ns, s in K1_BUILDS]
+
+
+def _k1_keys(kind, n, seed):
+    if kind == "tpcc":
+        from bench.keysets import tpcc_customer as tpcc
+        kb, kl = tpcc.generate(n, seed, "cpu")
+        return kb.numpy(), kl.numpy()
+    if kind == "wide":
+        kb, kl = url_keys(n, seed)
+        pre = np.tile(np.arange(1, 101, dtype=np.uint8), (n, 1))
+        return np.concatenate([pre, kb], 1), kl + 100
+    return GEN[kind](n, seed)
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_tree(kind, ns, n=30_000, seed=11, device="cuda"):
+    """A host-built tree of ``n`` keys on ``device`` with stale parents
+    (one hop for three keys; two at ns 128) and the moved keys' ids."""
+    kb, kl = _k1_keys(kind, n, seed)
+    cfg = TreeConfig.plan(max_keys=int(2.5 * n), key_width=kb.shape[1], ns=ns)
+    tree = bulk_build(cfg, KeySet(kb, kl), np.arange(n, dtype=np.int32) * 3,
+                      target=device)
+    tree, moved = stale_parents(tree, [5, 40, 77], double=(ns == 128))
+    return tree, torch.tensor(moved, device=device)
+
+
+def _k1_lanes(tree, moved, n_lanes):
+    """``n_lanes`` queries in runs of four kinds, every order of the four
+    in turn, so each warp of 32 / G queries mixes them whatever G: a lane
+    that hops to a sibling (a moved key), a lane whose descent ends in a
+    suffix binary search (a present key the plain version bills one; any
+    present key where the tree has none), a lane that resolves at a node's
+    prefix (a key above every key: byte 0 raised to 0xff) and an absent
+    lane (a present key with its last byte changed). Returns ``(qb, ql,
+    number of suffix-search keys found)``."""
+    import itertools
+    from repro_torch.kernels.fused_descent import ref
+    a = tree.arrays
+    live = a.leaf_keyid[a.leaf_occ].long()
+    pool = live[torch.randperm(live.numel(), generator=torch.Generator(
+        ).manual_seed(1))[:8192].to(live.device)]
+    _, _, st = ref.fused_traverse_ref(tree, a.key_bytes[pool],
+                                      a.key_lens[pool])
+    suffix = pool[st.suffix_bs > 0]
+    kinds = {"hop": moved.long(),
+             "suffix": suffix if suffix.numel() else pool,
+             "prefix": pool, "absent": pool}
+    picks, rows = dict.fromkeys(kinds, 0), []
+    while len(rows) < n_lanes:
+        for order in itertools.permutations(kinds):
+            for k in order:
+                rows.append((k, int(kinds[k][picks[k] % kinds[k].numel()])))
+                picks[k] += 1
+    rows = rows[:n_lanes]
+    kid = torch.tensor([r for _, r in rows], device=live.device)
+    qb, ql = a.key_bytes[kid].clone(), a.key_lens[kid].clone()
+    for i, (k, _) in enumerate(rows):
+        if k == "prefix":
+            qb[i, 0] = 0xFF
+        elif k == "absent":
+            qb[i, ql[i] - 1] ^= 0xA5
+    return qb, ql, int(suffix.numel())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", (1, 31, 4013))
+@pytest.mark.parametrize("kind,ns,S", K1_BUILDS, ids=K1_IDS)
+def test_cuda_k1_builds_match_plain_at_ragged_batches(cuda_device, kind, ns,
+                                                      S, B):
+    """Every (ns, S) build of K1 equals its plain version bit for bit at
+    batch sizes that are no multiple of the queries a block (1, 31 and
+    4,013), on the mixed lanes of ``_k1_lanes``; the build is the one the
+    library names for the width, at the lanes a query it names."""
+    tree, moved = _k1_tree(kind, ns)
+    qb, ql, _ = _k1_lanes(tree, moved, B)
+    L = qb.shape[1]
+    assert kcuda.stripes(L) == S
+    assert kcuda.lanes(ns, L) in (2, 4, 8, 16)
+    assert kernel_vs_plain(tree, qb, ql) == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,ns,S", K1_BUILDS, ids=K1_IDS)
+def test_cuda_k1_warps_mix_prefix_suffix_hop_and_absent_lanes(cuda_device,
+                                                              kind, ns, S):
+    """Each warp of K1 mixes lanes that resolve at a node's prefix, end in
+    a suffix binary search, hop to a sibling or find nothing; every build
+    equals its plain version bit for bit on them (stats on and off,
+    sibling check on and off), and the lanes do what they are built to
+    (the plain version's counters and answers say so)."""
+    from repro_torch.kernels.fused_descent import ref
+    tree, moved = _k1_tree(kind, ns)
+    qb, ql, n_suffix = _k1_lanes(tree, moved, 2048)
+    if kind == "tpcc":
+        assert n_suffix > 0
+    _, _, found, _, _, bst, _ = ref.fused_traverse_probe_ref(tree, qb, ql)
+    assert int(bst.sibling_hops.sum()) > 0
+    assert not found[qb[:, 0] == 0xFF].any() and found.any()
     assert kernel_vs_plain(tree, qb, ql) == 0
     torch.cuda.synchronize()
 
@@ -452,6 +563,38 @@ K4_MUTANTS = {
 }
 
 
+# Faults planted in K1's group body (``csrc/fused_descent.cu`` and the
+# group compares of ``csrc/cmp.cuh``), each (file, what the source says,
+# what the mutant says): the mixed lanes of every build in K1_BUILDS must
+# catch every one. Each keeps every load inside its table.
+K1_MUTANTS = {
+    # the group's ballot in a compare read one lane wide (its first lane)
+    "compare_mask_one_lane_wide": (
+        "cmp.cuh", "const unsigned hit = __ballot_sync(gmask, d != 0) & gmask;",
+        "const unsigned hit = __ballot_sync(gmask, d != 0) & gmask & "
+        "(gmask & (0u - gmask));"),
+    # a word's bytes compared from its last (highest-address) byte
+    "word_bytes_high_first": (
+        "cmp.cuh", "const int sh = (__ffs(static_cast<int>(x)) - 1) & ~7;",
+        "const int sh = (31 - __clz(static_cast<int>(x))) & ~7;"),
+    # the group's last differing lane taken for its first
+    "last_lane_first": (
+        "cmp.cuh", "__shfl_sync(gmask, d, __ffs(static_cast<int>(hit)) - 1)",
+        "__shfl_sync(gmask, d, 31 - __clz(static_cast<int>(hit)))"),
+    # a slot's key id shuffled from the next lane of the group
+    "key_id_from_next_lane": (
+        "fused_descent.cu", "pick(r.kid, s % W), s / W, G)",
+        "pick(r.kid, s % W), s / W + 1, G)"),
+    # the query's feature byte shuffled from the next lane of the group
+    "key_byte_from_next_lane": (
+        "cmp.cuh", "pick(q.w, word % KW), word / KW, G)",
+        "pick(q.w, word % KW), word / KW + 1, G)"),
+    # the prefix compare reads past the node's prefix length
+    "prefix_length_ignored": (
+        "cmp.cuh", "(n >= 4 ? ~0u : (1u << (8 * max(n, 0))) - 1u)", "~0u"),
+}
+
+
 def _build_mutants(kind, mutants, source):
     """Each mutant's copy of ``csrc`` under ``build/<kind>_mutants/`` (never
     the checkout's), built with one ``nvcc`` per mutant, all at once.
@@ -481,6 +624,34 @@ def k3_mutants():
 @pytest.fixture(scope="module")
 def k4_mutants():
     return _build_mutants("k4", K4_MUTANTS, k4cuda.SOURCE)
+
+
+@pytest.fixture(scope="module")
+def k1_mutants():
+    return _build_mutants("k1", K1_MUTANTS, kcuda.SOURCE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K1_MUTANTS))
+def test_cuda_k1_cases_reject_planted_faults(cuda_device, k1_mutants, name,
+                                             monkeypatch):
+    """Each mutant of ``K1_MUTANTS``, swapped in for the kernel, differs
+    from the plain version on the mixed lanes of some build of
+    ``K1_BUILDS``; the builds it fails are printed."""
+    import json
+    monkeypatch.setattr(kcuda, "SOURCE", k1_mutants[name])
+    monkeypatch.setattr(kcuda, "_FN", None)
+    failed = []
+    for (kind, ns, S), case in zip(K1_BUILDS, K1_IDS):
+        tree, moved = _k1_tree(kind, ns)
+        qb, ql, _ = _k1_lanes(tree, moved, 2048)
+        try:
+            kernel_vs_plain(tree, qb, ql)
+        except AssertionError:
+            failed.append(case)
+    torch.cuda.synchronize()
+    print(json.dumps({"mutant": name, "cases_failed": failed}))
+    assert failed, name
 
 
 @pytest.mark.cuda

@@ -109,12 +109,12 @@ def test_counters_add_on_the_device_with_no_copy_a_batch(monkeypatch):
     assert obs.get_metric("op.lanes", op="update").value == 132
 
 
-def test_k1_launches_count_by_build_on_the_host(monkeypatch):
-    """``kernel.launches`` counts K1's launches by the build launched
-    (``stripes``, as the library picks it for the key width): S = 1 and
-    S = 2 apart, nothing while telemetry is off (the library is not even
-    asked then), and no sync or read of the card's results. The launch and
-    the library's answer are stood in for: a CUDA kernel has no CPU mode."""
+def _stub_k1(monkeypatch, stripes, lanes, builds):
+    """K1's launch and the compiled library's answers stood in for (a CUDA
+    kernel has no CPU mode), and any device sync or read made a failure.
+    ``builds`` are (ns, key width) pairs; returns ``run(ns, width, times)``,
+    which launches K1 through ``ops._run`` on a tree of that build, and the
+    list of the library's answers asked for."""
     from repro_torch.kernels.fused_descent import cuda as kcuda
     from repro_torch.kernels.fused_descent import ops
 
@@ -124,46 +124,93 @@ def test_k1_launches_count_by_build_on_the_host(monkeypatch):
         return (z(B), z(B, NL), torch.zeros(B, dtype=torch.bool), z(B), z(B),
                 z(6, B))
 
-    def inputs(width):
+    def inputs(ns, width):
         q = K.make_keyset([int(x).to_bytes(width, "big") for x in range(50)],
                           width)
-        cfg = TreeConfig.plan(max_keys=1024, key_width=width)
+        cfg = TreeConfig.plan(max_keys=1024, key_width=width, ns=ns)
         return (bulk_build(cfg, q, np.arange(50, dtype=np.int32),
                            target="cpu"),
                 torch.from_numpy(q.bytes), torch.from_numpy(q.lens))
-    trees = {w: inputs(w) for w in (W, 40)}
-
-    def run(width, times):
-        for _ in range(times):
-            ops._run(*trees[width], True, True, False)
-
+    trees = {b: inputs(*b) for b in builds}
     asked = []
 
-    def stripes(L):
-        asked.append(L)
-        return {W: 1, 40: 2}[L]
+    def run(ns, width, times):
+        for _ in range(times):
+            ops._run(*trees[(ns, width)], True, True, False)
+
+    def ask_stripes(L):
+        asked.append(("stripes", L))
+        return stripes[L]
+
+    def ask_lanes(ns, L):
+        asked.append(("lanes", ns, L))
+        return lanes[(ns, L)]
 
     monkeypatch.setattr(kcuda, "launch", launch)
-    monkeypatch.setattr(kcuda, "stripes", stripes)
+    monkeypatch.setattr(kcuda, "stripes", ask_stripes)
+    monkeypatch.setattr(kcuda, "lanes", ask_lanes)
     for name in ("synchronize", "current_stream"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: pytest.fail(
             "device sync"))
     for name in ("item", "tolist", "cpu"):
         monkeypatch.setattr(torch.Tensor, name, lambda *a, **k: pytest.fail(
             "device read"))
+    return run, asked
+
+
+def test_k1_launches_count_by_build_on_the_host(monkeypatch):
+    """``kernel.launches`` counts K1's launches by the build launched
+    (``stripes``, as the library picks it for the key width): S = 1 and
+    S = 2 apart, nothing while telemetry is off (the library is not even
+    asked then), and no sync or read of the card's results. The launch and
+    the library's answers are stood in for: a CUDA kernel has no CPU mode."""
+    from repro_torch.kernels.fused_descent import ops
+    run, asked = _stub_k1(monkeypatch, {W: 1, 40: 2},
+                          {(64, W): 8, (64, 40): 8}, ((64, W), (64, 40)))
     n0 = ops.LAUNCHES
-    run(W, 1)
+    run(64, W, 1)
     assert obs.all_metrics() == [] and asked == []
     obs.enable()
-    run(W, 2)
-    run(40, 1)
-    assert ops.LAUNCHES == n0 + 4 and asked == [W, W, 40]
+    run(64, W, 2)
+    run(64, 40, 1)
+    assert ops.LAUNCHES == n0 + 4
+    assert [a for a in asked if a[0] == "stripes"] == [
+        ("stripes", W), ("stripes", W), ("stripes", 40)]
 
     def launches(s):
         return obs.get_metric("kernel.launches", kernel="fused_descent",
-                              stripes=s)
+                              stripes=s, lanes=8)
     assert launches(1).value == 2 and launches(2).value == 1
     assert launches(3) is None
+
+
+def test_k1_launches_carry_the_lanes_a_query(monkeypatch):
+    """``kernel.launches`` carries ``lanes=G`` beside ``stripes=S``: the
+    lanes a query of the body each launch ran, as the library picks them
+    for the node size and key width (``cuda.lanes``), asked only while
+    telemetry is on; a build of one S at another G counts apart."""
+    from repro_torch.kernels.fused_descent import ops
+    run, asked = _stub_k1(monkeypatch, {W: 1, 40: 2},
+                          {(64, W): 8, (64, 40): 4, (128, W): 32},
+                          ((64, W), (64, 40), (128, W)))
+    run(128, W, 1)
+    assert asked == []
+    obs.enable()
+    run(64, W, 2)
+    run(64, 40, 1)
+    run(128, W, 3)
+    assert [a for a in asked if a[0] == "lanes"] == [
+        ("lanes", 64, W), ("lanes", 64, W), ("lanes", 64, 40)] + [
+        ("lanes", 128, W)] * 3
+
+    def launches(s, g):
+        m = obs.get_metric("kernel.launches", kernel="fused_descent",
+                           stripes=s, lanes=g)
+        return None if m is None else m.value
+    assert (launches(1, 8), launches(2, 4), launches(1, 32)) == (2, 1, 3)
+    assert launches(1, 4) is None and launches(2, 8) is None
+    assert len([m for m in obs.all_metrics()
+                if m.name == "kernel.launches"]) == 3
 
 
 def _names(rec):
